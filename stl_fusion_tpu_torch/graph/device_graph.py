@@ -1,0 +1,393 @@
+"""DeviceGraph — host-managed container around the device CSR mirror.
+
+Port of the dense path of ``stl_fusion_tpu/graph/device_graph.py``:
+capacity-padded device arrays (layout in ``ops/wave.py``), batched edge
+ingestion, epoch bumps on recompute, and the wave API. Host numpy staging
+is authoritative for structure; the device copy is rebuilt from it when
+dirty and patched in place otherwise.
+
+Capacities double on growth, as in the JAX package. PyTorch runs eagerly and
+compiles nothing per shape, so the port drops the JAX package's pow2 padding
+of id batches (it only limited XLA recompiles). Edges are append-only with
+tombstoning by epoch until :meth:`DeviceGraph.compact`.
+
+The invalid state lives on the device as packed int32 words (node ``i`` is
+bit ``i & 31`` of word ``i >> 5``) and on the host as a bool mask. The topo,
+lat and lane mirrors are later slices of the port: with none built,
+``run_waves_union(mirror="auto")`` takes the dense path, as JAX does.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..ops.bitops import ids_to_word_masks, pack_mask_host, unpack_words_host
+from ..ops.wave import (
+    GraphArrays,
+    run_wave,
+    run_wave_collect,
+    run_wave_with_stats,
+    run_waves_chained_packed,
+    run_waves_union_packed,
+    seeds_to_frontier,
+)
+
+__all__ = ["DeviceGraph"]
+
+_MIRROR_SLICE = "ROADMAP A.4/A.5 (topo and lat mirrors, resident live loop)"
+
+
+def _round_up_pow2(x: int) -> int:
+    n = 1
+    while n < x:
+        n <<= 1
+    return n
+
+
+def _not_ported(what: str):
+    raise NotImplementedError(f"DeviceGraph.{what} is not ported yet: {_MIRROR_SLICE}")
+
+
+class DeviceGraph:
+    def __init__(self, node_capacity: int = 1024, edge_capacity: int = 4096, device=None):
+        self.device = resolve_device(device)
+        self.n_cap = _round_up_pow2(max(node_capacity, 16))
+        self.e_cap = _round_up_pow2(max(edge_capacity, 16))
+        self.n_nodes = 0  # dense ids [0, n_nodes)
+        self.n_edges = 0  # live prefix of edge arrays
+        # host staging (authoritative for structure)
+        self._h_edge_src = np.full(self.e_cap, self.n_cap, dtype=np.int32)
+        self._h_edge_dst = np.full(self.e_cap, self.n_cap, dtype=np.int32)
+        self._h_edge_dst_epoch = np.full(self.e_cap, -1, dtype=np.int32)
+        self._h_node_epoch = np.zeros(self.n_cap + 1, dtype=np.int32)
+        self._h_node_epoch[self.n_cap] = -2  # dummy slot never version-matches
+        self._h_invalid = np.zeros(self.n_cap + 1, dtype=bool)  # host-authoritative
+        self._g: Optional[GraphArrays] = None  # device copy, built lazily
+        self._dirty = True
+
+    @classmethod
+    def from_numpy_state(cls, state: dict, device=None) -> "DeviceGraph":
+        """Adopt a JAX ``DeviceGraph``'s host staging arrays (``_h_edge_src``,
+        ``_h_edge_dst``, ``_h_edge_dst_epoch``, ``_h_node_epoch``,
+        ``_h_invalid``, ``n_nodes``, ``n_edges``, ``n_cap``, ``e_cap``) — the
+        port's counterpart of carrying weights across. Arrays are copied."""
+        g = cls.__new__(cls)
+        g.device = resolve_device(device)
+        g.n_cap, g.e_cap = int(state["n_cap"]), int(state["e_cap"])
+        g.n_nodes, g.n_edges = int(state["n_nodes"]), int(state["n_edges"])
+        g._h_edge_src = np.array(state["_h_edge_src"], dtype=np.int32)
+        g._h_edge_dst = np.array(state["_h_edge_dst"], dtype=np.int32)
+        g._h_edge_dst_epoch = np.array(state["_h_edge_dst_epoch"], dtype=np.int32)
+        g._h_node_epoch = np.array(state["_h_node_epoch"], dtype=np.int32)
+        g._h_invalid = np.array(state["_h_invalid"], dtype=bool)
+        if g._h_edge_src.shape != (g.e_cap,) or g._h_node_epoch.shape != (g.n_cap + 1,):
+            raise ValueError("from_numpy_state: array shapes do not match n_cap/e_cap")
+        g._g = None
+        g._dirty = True
+        return g
+
+    # ------------------------------------------------------------------ build
+    def add_nodes(self, count: int) -> np.ndarray:
+        """Allocate ``count`` dense node ids."""
+        start = self.n_nodes
+        self.n_nodes += count
+        if self.n_nodes > self.n_cap:
+            self._grow_nodes(self.n_nodes)
+        return np.arange(start, self.n_nodes, dtype=np.int32)
+
+    def add_edges(
+        self,
+        src: np.ndarray,
+        dst: np.ndarray,
+        dst_epoch: Optional[np.ndarray] = None,
+    ) -> None:
+        """Append dependency edges src(used) → dst(dependent) in batch.
+
+        ``dst_epoch`` defaults to each dependent's CURRENT epoch — the
+        "edge is valid for this version" capture rule."""
+        src = np.asarray(src, dtype=np.int32)
+        dst = np.asarray(dst, dtype=np.int32)
+        k = len(src)
+        if k and (min(src.min(), dst.min()) < 0 or max(src.max(), dst.max()) > self.n_cap):
+            # the kernels index bit vectors and epochs by these ids unchecked
+            raise ValueError(f"add_edges: node ids must lie in [0, {self.n_cap}]")
+        if self.n_edges + k > self.e_cap:
+            self._grow_edges(self.n_edges + k)
+        if dst_epoch is None:
+            dst_epoch = self._h_node_epoch[dst]
+        dst_epoch = np.broadcast_to(np.asarray(dst_epoch, dtype=np.int32), dst.shape)
+        start = self.n_edges
+        sl = slice(start, start + k)
+        self._h_edge_src[sl] = src
+        self._h_edge_dst[sl] = dst
+        self._h_edge_dst_epoch[sl] = dst_epoch
+        self.n_edges += k
+        if self._g is not None and not self._dirty:
+            # incremental device append into the padded slots: a slice copy,
+            # no full re-upload of the edge arrays
+            self._g.edge_src[sl] = self._upload(self._h_edge_src[sl])
+            self._g.edge_dst[sl] = self._upload(self._h_edge_dst[sl])
+            self._g.edge_dst_epoch[sl] = self._upload(self._h_edge_dst_epoch[sl])
+            self._g = self._g._replace(n_live=self.n_edges)
+        else:
+            self._dirty = True
+
+    def bump_epochs(self, node_ids: np.ndarray) -> None:
+        """Nodes recomputed: new epoch ⇒ their stale in-edges go dead, and
+        their invalid flag clears. Ids are UNIQUE-ified first: the host fancy
+        ``+=`` applies once per unique id while a device ``index_add_`` adds
+        once per occurrence — a duplicated batch would diverge the copies."""
+        node_ids = np.unique(np.asarray(node_ids, dtype=np.int32))
+        if node_ids.size == 0:
+            return
+        self._h_node_epoch[node_ids] += 1
+        self._h_invalid[node_ids] = False
+        if self._g is not None and not self._dirty:
+            ids = self._upload(node_ids).long()
+            self._g.node_epoch.index_add_(
+                0, ids, torch.ones(len(node_ids), dtype=torch.int32, device=self.device)
+            )
+            self._device_invalid_update(node_ids, False)
+        else:
+            self._dirty = True
+
+    def mark_invalid(self, node_ids: np.ndarray) -> None:
+        """Externally-observed invalidations (host-led waves) → mirror state."""
+        node_ids = np.asarray(node_ids, dtype=np.int32)
+        if node_ids.size == 0:
+            return
+        self._h_invalid[node_ids] = True
+        self._device_invalid_update(node_ids, True)
+
+    def clear_invalid_ids(self, node_ids: np.ndarray) -> None:
+        """Refreshed rows are consistent again WITHOUT an epoch bump."""
+        node_ids = np.asarray(node_ids, dtype=np.int32)
+        if node_ids.size == 0:
+            return
+        self._h_invalid[node_ids] = False
+        self._device_invalid_update(node_ids, False)
+
+    def _device_invalid_update(self, node_ids: np.ndarray, value: bool) -> None:
+        """Apply a host-side invalid change to the device words. Small
+        batches rewrite only the words they touch (one scatter of per-word
+        OR masks, each word once); a batch whose ids outweigh the packed
+        mask uploads the host-authoritative mask instead."""
+        if self._g is None or self._dirty:
+            return
+        inv = self._g.invalid
+        if node_ids.size > inv.shape[0]:
+            inv.copy_(self._upload(pack_mask_host(self._h_invalid)))
+            return
+        words, masks = ids_to_word_masks(node_ids)
+        w = self._upload(words)
+        m = self._upload(masks)
+        inv[w] = (inv[w] | m) if value else (inv[w] & ~m)
+
+    def _grow_nodes(self, need: int) -> None:
+        new_cap = _round_up_pow2(need)
+        node_epoch = np.zeros(new_cap + 1, dtype=np.int32)
+        node_epoch[: self.n_cap] = self._h_node_epoch[: self.n_cap]
+        node_epoch[new_cap] = -2
+        invalid = np.zeros(new_cap + 1, dtype=bool)
+        invalid[: self.n_cap] = self._h_invalid[: self.n_cap]
+        # re-point padded edges at the new dummy slot
+        self._h_edge_src[self._h_edge_src == self.n_cap] = new_cap
+        self._h_edge_dst[self._h_edge_dst == self.n_cap] = new_cap
+        self._h_node_epoch = node_epoch
+        self._h_invalid = invalid
+        self.n_cap = new_cap
+        self._dirty = True
+
+    def _grow_edges(self, need: int) -> None:
+        new_cap = _round_up_pow2(need)
+        for name in ("_h_edge_src", "_h_edge_dst"):
+            arr = np.full(new_cap, self.n_cap, dtype=np.int32)
+            arr[: self.n_edges] = getattr(self, name)[: self.n_edges]
+            setattr(self, name, arr)
+        epoch = np.full(new_cap, -1, dtype=np.int32)
+        epoch[: self.n_edges] = self._h_edge_dst_epoch[: self.n_edges]
+        self._h_edge_dst_epoch = epoch
+        self.e_cap = new_cap
+        self._dirty = True
+
+    # ------------------------------------------------------------------ device sync
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        """Host array → a FRESH device tensor. ``torch.from_numpy`` aliases
+        the numpy buffer, and on the CPU ``.to`` would keep that alias; the
+        staging arrays are later mutated in place (epoch ``+=``, edge
+        splices, invalid marks), so an aliased device copy would absorb
+        those writes on top of its own updates. ``copy=True`` always copies."""
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device, copy=True)
+
+    def device_arrays(self) -> GraphArrays:
+        """Materialize (or reuse) the device copy; host staging is
+        authoritative for structure AND invalid state at rebuild time."""
+        if self._g is None or self._dirty:
+            self._g = GraphArrays(
+                edge_src=self._upload(self._h_edge_src),
+                edge_dst=self._upload(self._h_edge_dst),
+                edge_dst_epoch=self._upload(self._h_edge_dst_epoch),
+                node_epoch=self._upload(self._h_node_epoch),
+                invalid=self._upload(pack_mask_host(self._h_invalid)),
+                n_live=self.n_edges,
+            )
+            self._dirty = False
+        return self._g
+
+    def _seed_frontier(self, seed_ids) -> torch.Tensor:
+        ids = self._upload(np.asarray(seed_ids, dtype=np.int32).reshape(-1))
+        return seeds_to_frontier(self.n_cap, ids)
+
+    # ------------------------------------------------------------------ waves
+    def run_wave(self, seed_ids: Sequence[int], with_stats: bool = False):
+        """Cascade from ``seed_ids``; returns newly-invalidated count
+        (+ BFS depth with stats). The device arrays keep the result state."""
+        g = self.device_arrays()
+        seeds = self._seed_frontier(seed_ids)
+        if with_stats:
+            self._g, count, depth = run_wave_with_stats(seeds, g)
+            self._sync_invalid_back()
+            return count, depth
+        self._g, count = run_wave(seeds, g)
+        self._sync_invalid_back()
+        return count
+
+    def run_wave_collect(
+        self, seed_ids: Sequence[int], cap: int = 8192
+    ) -> Tuple[int, np.ndarray]:
+        """Cascade from ``seed_ids`` and return (count, newly-invalidated
+        node ids in ascending order) with an O(wave) readback; only on
+        overflow (count > cap) does it read back the packed mask. The host
+        ``_h_invalid`` copy is patched from the ids."""
+        g = self.device_arrays()
+        self._g, count, ids, overflow = run_wave_collect(self._seed_frontier(seed_ids), g, cap)
+        return count, self._patch_host_invalid(count, ids.cpu().numpy(), overflow)
+
+    def _patch_host_invalid(self, count: int, ids: np.ndarray, overflow: bool) -> np.ndarray:
+        """Apply a compacted-wave readback to ``_h_invalid``: the id buffer
+        when it fit, otherwise a mask diff against the device words (read
+        back bit-packed). Returns the newly-invalid ids."""
+        if overflow:
+            dev_mask = unpack_words_host(self._g.invalid.cpu().numpy(), len(self._h_invalid))
+            newly = dev_mask & ~self._h_invalid
+            newly_ids = np.nonzero(newly)[0].astype(np.int32)
+            self._h_invalid |= newly
+        else:
+            newly_ids = ids[:count] if count else np.empty(0, np.int32)
+            self._h_invalid[newly_ids] = True
+        return newly_ids
+
+    def run_waves_chained(self, seed_id_lists: Sequence[Sequence[int]]):
+        """Chain many seed waves, each over the state the previous one left.
+        Returns (per-wave counts int64[W], union newly ids)."""
+        g = self.device_arrays()
+        width = max((len(s) for s in seed_id_lists), default=1)
+        mat = np.full((len(seed_id_lists), max(width, 1)), -1, dtype=np.int32)
+        for i, s in enumerate(seed_id_lists):
+            mat[i, : len(s)] = np.asarray(s, dtype=np.int32)
+        self._g, counts, newly_w = run_waves_chained_packed(self._upload(mat), g)
+        newly = unpack_words_host(newly_w.cpu().numpy(), self.n_cap + 1)  # 1 bit/node
+        self._h_invalid |= newly
+        return counts.numpy().astype(np.int64), np.nonzero(newly)[0].astype(np.int32)
+
+    def run_waves_union(self, seed_id_lists: Sequence[Sequence[int]], mirror: str = "auto"):
+        """Union cascade for a burst of seed waves: ONE BFS expansion from
+        all seeds together. Returns (total newly count, union newly ids).
+
+        ``mirror``: "auto" would ride a topo mirror when one is built; the
+        mirrors are a later slice, so both "auto" and "off" take the dense
+        path."""
+        if mirror not in ("auto", "off"):
+            raise ValueError(f"mirror must be 'auto' or 'off', got {mirror!r}")
+        g = self.device_arrays()
+        flat = [np.asarray(s, dtype=np.int32).reshape(-1) for s in seed_id_lists]
+        flat = np.concatenate(flat) if flat else np.empty(0, np.int32)
+        self._g, count, newly_w = run_waves_union_packed(self._upload(flat), g)
+        newly = unpack_words_host(newly_w.cpu().numpy(), self.n_cap + 1)  # 1 bit/node
+        self._h_invalid |= newly
+        return count, np.nonzero(newly)[0].astype(np.int32)
+
+    def run_wave_frontier(self, seed_frontier: torch.Tensor, sync_host: bool = False) -> int:
+        """Wave from a prebuilt bool frontier (bench hot path — the host copy
+        of the invalid state stays stale unless ``sync_host``)."""
+        g = self.device_arrays()
+        self._g, count = run_wave(seed_frontier, g)
+        if sync_host:
+            self._sync_invalid_back()
+        return count
+
+    def _sync_invalid_back(self) -> None:
+        """After a device wave the device invalid words are newer — pull
+        them bit-packed."""
+        self._h_invalid = unpack_words_host(self._g.invalid.cpu().numpy(), self.n_cap + 1)
+
+    # ------------------------------------------------------------------ mirrors (later slices)
+    def build_topo_mirror(self, *args, **kwargs):
+        _not_ported("build_topo_mirror")
+
+    def start_topo_mirror_rebuild(self, *args, **kwargs):
+        _not_ported("start_topo_mirror_rebuild")
+
+    def poll_topo_mirror_rebuild(self, *args, **kwargs):
+        _not_ported("poll_topo_mirror_rebuild")
+
+    def set_adaptive_passes(self, *args, **kwargs):
+        _not_ported("set_adaptive_passes")
+
+    def run_waves_union_seq(self, *args, **kwargs):
+        _not_ported("run_waves_union_seq")
+
+    def run_waves_lanes(self, *args, **kwargs):
+        _not_ported("run_waves_lanes")
+
+    def run_waves_lanes_chain(self, *args, **kwargs):
+        _not_ported("run_waves_lanes_chain")
+
+    def dispatch_waves_lanes_chain(self, *args, **kwargs):
+        _not_ported("dispatch_waves_lanes_chain")
+
+    def harvest_waves_lanes_chain(self, *args, **kwargs):
+        _not_ported("harvest_waves_lanes_chain")
+
+    def dispatch_waves_superround(self, *args, **kwargs):
+        _not_ported("dispatch_waves_superround")
+
+    def register_aux_delta_log(self, *args, **kwargs):
+        _not_ported("register_aux_delta_log")
+
+    # ------------------------------------------------------------------ readback
+    def invalid_mask(self) -> np.ndarray:
+        g = self.device_arrays()
+        return unpack_words_host(g.invalid.cpu().numpy(), self.n_nodes)
+
+    def invalid_ids(self) -> np.ndarray:
+        return np.nonzero(self.invalid_mask())[0].astype(np.int32)
+
+    def clear_invalid(self) -> None:
+        g = self.device_arrays()
+        g.invalid.zero_()
+        self._h_invalid = np.zeros(self.n_cap + 1, dtype=bool)
+
+    def compact(self) -> int:
+        """Drop dead edges (epoch-mismatched) — the pruner sweep. Returns
+        removed count."""
+        live = (
+            self._h_node_epoch[self._h_edge_dst[: self.n_edges]]
+            == self._h_edge_dst_epoch[: self.n_edges]
+        )
+        removed = int((~live).sum())
+        if removed == 0:
+            return 0
+        k = int(live.sum())
+        for name in ("_h_edge_src", "_h_edge_dst", "_h_edge_dst_epoch"):
+            arr = getattr(self, name)
+            kept = arr[: self.n_edges][live]
+            pad_val = self.n_cap if name != "_h_edge_dst_epoch" else -1
+            arr[:k] = kept
+            arr[k : self.n_edges] = pad_val
+        self.n_edges = k
+        self._dirty = True
+        return removed

@@ -1,0 +1,132 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``) at first use.
+
+Each source is compiled on its own by ``nvcc`` for Hopper (``sm_90a``) into a
+shared library with a plain C interface, and loaded with ``ctypes``. Every C
+entry takes raw device pointers plus the CUDA stream as ``void*`` and
+returns ``cudaGetLastError()``; the Python wrappers raise when it is not 0.
+
+Libraries land in ``stl_fusion_tpu_torch/_build/`` (git-ignored), keyed by a
+hash of the source and the flags, so an edited source rebuilds and an
+unchanged one loads straight away. :func:`build_all` starts one ``nvcc`` per
+source at once and waits for all of them.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import re
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+__all__ = ["KERNELS", "build_all", "build_info", "launch", "load"]
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+_P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+
+#: kernel → (source file, C entry, its argument types)
+KERNELS: Dict[str, tuple] = {
+    "or_popcount": ("or_popcount.cu", "or_popcount_launch", [_P, _P, _P, _LL, _P, _P]),
+    "wave_expand": (
+        "wave_expand.cu", "wave_expand_launch",
+        [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _P],
+    ),
+}
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_libs: Dict[str, ctypes.CDLL] = {}
+#: per kernel: {"seconds", "registers", "spill_bytes", "cached"} of the last build
+build_info: Dict[str, dict] = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ([os.path.join(home, "bin", "nvcc")] if home else []) + [
+        shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc",
+    ]:
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+
+
+def _target(name: str) -> Path:
+    src = CSRC / KERNELS[name][0]
+    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}_{h[:16]}.so"
+
+
+def _ptxas_stats(text: str) -> dict:
+    regs = [int(x) for x in re.findall(r"Used (\d+) registers", text)]
+    spills = [int(a) + int(b) for a, b in re.findall(
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)]
+    return {"registers": max(regs) if regs else None,
+            "spill_bytes": sum(spills) if spills else None}
+
+
+def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
+    """Compile every kernel not yet built, one ``nvcc`` per source, all
+    started together. Raises with the compiler's output if one fails."""
+    names = list(KERNELS if names is None else names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = _target(name)
+        if out.exists():
+            build_info.setdefault(name, {"seconds": 0.0, "registers": None,
+                                         "spill_bytes": None, "cached": True})
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / KERNELS[name][0])]
+        procs[name] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ), tmp, out, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, out, t0) in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{text}")
+            continue
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+        build_info[name] = {"seconds": time.perf_counter() - t0,
+                            **_ptxas_stats(text), "cached": False}
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return {n: build_info[n] for n in names}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed."""
+    lib = _libs.get(name)
+    if lib is None:
+        out = _target(name)
+        if not out.exists():
+            build_all([name])
+        lib = ctypes.CDLL(str(out))
+        _src, entry, argtypes = KERNELS[name]
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _libs[name] = lib
+    return lib
+
+
+def launch(name: str, *args) -> None:
+    """Call kernel ``name``'s C entry on the current stream; raise on a
+    nonzero CUDA error code."""
+    import torch
+
+    _src, entry, _ = KERNELS[name]
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(load(name), entry)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")

@@ -1,0 +1,65 @@
+"""The port stands alone: no module of ``stl_fusion_tpu_torch`` imports
+``jax`` or ``stl_fusion_tpu`` (compared by exact ROOT module name — the
+port's own name starts with the string ``stl_fusion_tpu``), and its entry
+points raise on a machine with no CUDA device unless ``device="cpu"`` is
+passed."""
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+import stl_fusion_tpu_torch
+from stl_fusion_tpu_torch.core import FusionHub
+from stl_fusion_tpu_torch.device import resolve_device
+from stl_fusion_tpu_torch.graph import DeviceGraph, TpuGraphBackend
+
+PKG = Path(stl_fusion_tpu_torch.__file__).resolve().parent
+FORBIDDEN = {"jax", "jaxlib", "stl_fusion_tpu"}
+
+
+def _import_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.lineno, node.module.split(".")[0]
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    files = sorted(PKG.rglob("*.py"))
+    assert len(files) > 20
+    bad = [f"{f.relative_to(PKG)}:{line} imports {root}"
+           for f in files for line, root in _import_roots(f) if root in FORBIDDEN]
+    assert bad == []
+
+
+def test_root_name_check_is_exact(tmp_path):
+    probe = tmp_path / "probe.py"
+    probe.write_text("import stl_fusion_tpu_torch.ops\nfrom stl_fusion_tpu.core import x\n"
+                     "from . import y\nimport jax.numpy as jnp\n")
+    roots = [r for _, r in _import_roots(probe)]
+    assert roots == ["stl_fusion_tpu_torch", "stl_fusion_tpu", "jax"]
+    assert [r for r in roots if r in FORBIDDEN] == ["stl_fusion_tpu", "jax"]
+
+
+def test_default_device_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid here")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DeviceGraph()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TpuGraphBackend(FusionHub())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DeviceGraph(device="cuda")
+
+
+def test_explicit_cpu_runs():
+    assert resolve_device("cpu") == torch.device("cpu")
+    g = DeviceGraph(device="cpu")
+    g.add_nodes(3)
+    g.add_edges([0, 1], [1, 2])
+    assert g.run_wave([0]) == 3
