@@ -13,24 +13,33 @@ user calls. Phases, each printing one JSON line:
    spills);
 3. ``hellocart`` — the HelloCart v1 chain (Product → Cart → Total) on a
    ``FusionHub`` with the port's ``TpuGraphBackend`` on the card: a host-led
-   change through ``invalidating()``, ``invalidate_cascade`` and
-   ``invalidate_cascade_batch``, with the watched node applied eagerly, the
-   rest pending, and the recomputed totals right;
+   change through ``invalidating()``, ``invalidate_cascade``,
+   ``invalidate_cascade_batch`` and one ``invalidate_cascade_batch_sharded``
+   burst on an 8-shard mesh on the card, with the watched node applied
+   eagerly, the rest pending, and the recomputed totals right;
 4. ``power_law_10m`` — the BASELINE stress graph (``power_law_dag(10M,
    avg_degree=3, seed=7)``) in ``DeviceGraph(device="cuda")`` with 1% of nodes
    epoch-bumped after capture: ``run_waves_union`` from 100,000 seeds,
    ``run_wave_collect`` from 256 shallow seeds and ``run_wave_with_stats``
    from hub nodes, each held EXACTLY against an independent numpy level-BFS
    oracle on a src-sorted CSR;
-5. ``profile`` — ``torch.profiler`` over one more 10M union wave: device
+5. ``sharded_10m`` — the same graph and epochs as a ``ShardedDeviceGraph``
+   on a mesh of 8 logical shards on the card: the 100,000-seed ``run_wave``
+   with ``exchange="ring"`` (the ring all-gather kernel), ``"packed"`` and
+   ``"bool"``, and ``run_wave_collect`` from the 256 shallow seeds, each held
+   EXACTLY against the same oracle;
+6. ``profile`` — ``torch.profiler`` over one more 10M union wave: device
    time by kernel and the device's idle share;
-6. ``kernels``  — each kernel against its plain PyTorch version on the card,
-   exact, with its time (CUDA events), the plain version's time and the
-   bound for the same work.
+7. ``kernels``  — each kernel against its plain PyTorch version on the card,
+   exact, with its time (CUDA events), the plain version's time, the time
+   of one PyTorch call computing the same function where there is one, and
+   the bound for the same work.
 
-Phases 3-4 are the main path: every kernel's launch count is set to 0 just
-before them and read just after, and each must be > 0. Any failure raises
-and the script exits non-zero. The last lines are the kernel summary, the
+The main path is two paths, each driven with every kernel's launch count
+set to 0 just before it and read just after: phases 3-4 (the dense wave)
+must launch ``or_popcount`` and ``wave_expand``, phase 5 (the sharded wave)
+those two and ``ring_all_gather``. Any failure raises and the script exits
+non-zero. The last lines are the kernel summary, the
 ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device the script exits non-zero and prints no result.
@@ -51,6 +60,7 @@ PEAK_ALU_OPS_PER_S = 67e12
 N_NODES = 10_000_000
 N_UNION_SEEDS = 100_000
 GRAPH_SEED = 7
+N_SHARDS = 8
 
 
 def emit(obj) -> None:
@@ -262,6 +272,24 @@ async def _hellocart(device) -> dict:
            "batch: unwatched nodes pending")
     out["total"] = await totals.total()
     expect(out["total"] == truth(), "total after invalidate_cascade_batch")
+
+    # mesh burst: one union wave on 8 logical shards of the card
+    from stl_fusion_tpu_torch.parallel import graph_mesh
+
+    mesh = graph_mesh(N_SHARDS, device=device)
+    c_total, fired = await watch_total()
+    c_cherry = await capture(lambda: products.get("cherry"))
+    c_bob = await capture(lambda: carts.cart_total("bob"))
+    products.price["cherry"] = 5.0
+    out["sharded_count"] = backend.invalidate_cascade_batch_sharded([c_cherry], mesh)
+    expect(out["sharded_count"] == 3, f"sharded count {out['sharded_count']} != 3")
+    expect(fired == [c_total] and c_total._state == 2, "sharded: watched total eager")
+    expect(all(c.is_invalidated for c in (c_cherry, c_bob)), "sharded: dependents invalid")
+    sharded = backend.sharded_mirror(mesh)
+    expect(sharded.mesh.size == N_SHARDS and sharded.g.invalid[0].device.type == device.type,
+           "sharded mirror lives on the card mesh")
+    out["total"] = await totals.total()
+    expect(out["total"] == truth(), "total after invalidate_cascade_batch_sharded")
     out.update(nodes=backend.node_count, edges=backend.edge_count, waves=backend.waves_run)
     return out
 
@@ -318,7 +346,7 @@ def phase_power_law(device, card: str, n: int = N_NODES, n_seeds: int = N_UNION_
 
     union_seeds = rng.choice(n, n_seeds, replace=False)
     (count, ids), ms = timed(lambda: g.run_waves_union([union_seeds.tolist()]))
-    want = oracle.wave(union_seeds)
+    want = want_union = oracle.wave(union_seeds)
     check("run_waves_union", count, ids, want)
     # the same wave again from a cleared state: the first run pays one-time
     # lazy loading of the PyTorch kernels it touches
@@ -332,7 +360,7 @@ def phase_power_law(device, card: str, n: int = N_NODES, n_seeds: int = N_UNION_
     g.clear_invalid()
     shallow = n - 1 - rng.choice(n // 100, 256, replace=False)
     (count, ids), ms = timed(lambda: g.run_wave_collect(shallow.tolist()))
-    want = oracle.wave(shallow)
+    want = want_shallow = oracle.wave(shallow)
     check("run_wave_collect", count, ids, want)
     out["waves"]["collect"] = {"seeds": 256, "newly": count, "levels": want[2], "wave_ms": ms,
                                "invalidations_per_s": count / (ms / 1e3)}
@@ -357,24 +385,95 @@ def phase_power_law(device, card: str, n: int = N_NODES, n_seeds: int = N_UNION_
     deg = oracle.start[union_seeds + 1] - oracle.start[union_seeds]
     out["level"] = {"graph": g, "ga": ga, "seeds": union_seeds,
                     "active_edges": int(deg.sum()),
-                    "active_dsts": int(np.unique(oracle.dst[oracle.out_edges(union_seeds)]).size)}
+                    "active_dsts": int(np.unique(oracle.dst[oracle.out_edges(union_seeds)]).size),
+                    # for the sharded phase: the same graph, epochs and seeds
+                    "src": src, "dst": dst, "node_epoch": node_epoch, "n": n,
+                    "shallow": shallow, "want_union": want_union, "want_shallow": want_shallow}
     return out
 
 
-def phase_profile(device, level: dict) -> dict:
-    """Where one 10M-node union wave's time goes: ``torch.profiler`` over
-    the same wave as the main path's, from a cleared state; device time by
-    kernel and the device's idle share."""
+def phase_sharded(device, card: str, level: dict) -> dict:
+    """The 10M graph and epochs of ``power_law_10m`` on a mesh of 8 logical
+    shards on the card, one ``ShardedDeviceGraph`` per exchange."""
+    import numpy as np
+    import torch
+
+    from stl_fusion_tpu_torch.ops import ring_all_gather as rag
+    from stl_fusion_tpu_torch.parallel import ShardedDeviceGraph, graph_mesh
+
+    src, dst, n = level["src"], level["dst"], level["n"]
+    mesh = graph_mesh(N_SHARDS, device=device)
+    union_seeds, shallow = level["seeds"], level["shallow"]
+    want_union, want_shallow = level["want_union"], level["want_shallow"]
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    out = {"phase": "sharded_10m", "card": card, "nodes": n, "shards": mesh.size,
+           "waves": {}}
+
+    def check(name, count, mask_ids, want, levels=None):
+        want_ids, want_count, want_depth = want
+        if count != want_count:
+            raise AssertionError(f"{name}: count {count} != oracle {want_count}")
+        if not np.array_equal(mask_ids, want_ids):
+            raise AssertionError(f"{name}: newly set differs from the oracle")
+        if levels is not None and levels != want_depth:
+            raise AssertionError(f"{name}: levels {levels} != oracle {want_depth}")
+
+    def timed(fn):
+        t = time.perf_counter()
+        res = fn()
+        sync(device)
+        return res, (time.perf_counter() - t) * 1e3
+
+    graphs = {}
+    for exchange in ("ring", "packed", "bool"):
+        t0 = time.perf_counter()
+        sg = ShardedDeviceGraph(src, dst, n, mesh=mesh, edge_dst_epoch=np.zeros(len(src), np.int32),
+                                exchange=exchange, node_epoch=level["node_epoch"])
+        sync(device)
+        setup_s = time.perf_counter() - t0
+        seeds = union_seeds.tolist()
+        rec = {"setup_s": setup_s, "e_shard": sg.e_shard, "n_local": sg.n_local}
+        for run in ("first", "repeat"):
+            sg.clear_invalid()
+            ring0 = rag.launches
+            count, ms = timed(lambda: sg.run_wave(seeds))
+            check(f"{exchange} run_wave ({run})", count,
+                  np.nonzero(sg.invalid_mask())[0], want_union, sg.last_levels)
+            rec[f"wave_ms_{run}"] = ms
+            rec[f"ring_launches_{run}"] = rag.launches - ring0
+        rec.update(newly=count, levels=sg.last_levels,
+                   invalidations_per_s_repeat=count / (rec["wave_ms_repeat"] / 1e3))
+        out["waves"][exchange] = rec
+        graphs[exchange] = sg
+    sg = graphs["ring"]
+    sg.clear_invalid()
+    (count, ids, overflow), ms = timed(lambda: sg.run_wave_collect(shallow.tolist()))
+    if overflow:
+        raise AssertionError("ring run_wave_collect overflowed its 65,536-id buffer")
+    check("ring run_wave_collect", count, ids, want_shallow)
+    check("ring run_wave_collect (mask)", count, np.nonzero(sg.invalid_mask())[0], want_shallow)
+    out["waves"]["collect_ring"] = {"seeds": len(shallow), "newly": count, "wave_ms": ms,
+                                    "levels": sg.last_levels}
+    if device.type == "cuda":
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    emit(out)
+    # the ring's input at the main path's shape: each shard's words of the
+    # collect wave's state
+    out["ring_chunks"] = [inv[: sg.n_local // 32].clone() for inv in sg.g.invalid]
+    out["ring_graph"] = sg
+    return out
+
+
+def profile_device(device, fn) -> tuple:
+    """``fn()`` under ``torch.profiler``: (wall ms, device time by kernel
+    name as {name: {"ms", "calls"}})."""
     from torch.profiler import ProfilerActivity, profile
 
-    g, seeds = level["graph"], level["seeds"].tolist()
-    g.clear_invalid()
-    g.run_waves_union([seeds])  # warm-up
-    g.clear_invalid()
     sync(device)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        g.run_waves_union([seeds])
+        fn()
         sync(device)
         wall_ms = (time.perf_counter() - t) * 1e3
     by_name = {}
@@ -386,15 +485,26 @@ def phase_profile(device, level: dict) -> dict:
             dev_us = getattr(ev, "self_cuda_time_total", 0)
         if dev_us > 0:
             by_name[ev.key[:80]] = {"ms": dev_us / 1e3, "calls": ev.count}
+    return wall_ms, by_name
+
+
+def phase_profile(device, wave: str, run, reset) -> dict:
+    """Where one 10M-node wave's time goes: ``torch.profiler`` over the same
+    wave as the main path's, from a cleared state after a warm-up; device
+    time by kernel and the device's idle share."""
+    reset()
+    run()  # warm-up
+    reset()
+    wall_ms, by_name = profile_device(device, run)
     device_ms = sum(v["ms"] for v in by_name.values())
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1]["ms"])[:12])
-    out = {"phase": "profile", "wave": "run_waves_union", "wall_ms": wall_ms,
+    out = {"phase": "profile", "wave": wave, "wall_ms": wall_ms,
            "device_ms": device_ms, "idle_share": 1 - device_ms / wall_ms, "by_kernel": top}
     emit(out)
     return out
 
 
-def phase_kernels(device, main_launches: dict, level: dict, card: str) -> list:
+def phase_kernels(device, main_launches: dict, level: dict, ring_chunks: list, card: str) -> list:
     import numpy as np
     import torch
 
@@ -439,6 +549,10 @@ def phase_kernels(device, main_launches: dict, level: dict, card: str) -> list:
     iw = fw.clone()
     es, ed, ee = ga.live_edges()
     args = (fw, iw, ga.node_epoch, es, ed, ee)
+
+    def expand():  # as the wave calls it: with the graph's source-id bound
+        return tw.wave_expand(*args, n_src=ga.n_cap + 1)
+
     want = tw.wave_expand_plain(*args)
     got = tw.wave_expand(*args)
     e = int((got.long() - want.long()).abs().max())
@@ -450,13 +564,43 @@ def phase_kernels(device, main_launches: dict, level: dict, card: str) -> list:
            "source": "stl_fusion_tpu_torch/csrc/wave_expand.cu",
            "replaces": "stl_fusion_tpu/ops/wave.py:80 (XLA wave_step; no Pallas kernel)",
            "launches": main_launches["wave_expand"], "max_abs_err": e,
-           "ms": time_ms(lambda: tw.wave_expand(*args), device),
+           "ms": time_ms(expand, device),
            "plain_ms": time_ms(lambda: tw.wave_expand_plain(*args), device, reps=5),
            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
            "shape": f"{n_e} live edges, {a} from the frontier, {w} words"}
+
+    # ring_all_gather: 8 shards x 39,063 words, the sharded 10M wave's shape
+    from stl_fusion_tpu_torch.ops import ring_all_gather as rag
+
+    got = rag.ring_all_gather(ring_chunks)
+    want = rag.ring_all_gather_plain(ring_chunks)
+    full = torch.cat(ring_chunks)
+    e = max(int((a.long() - b.long()).abs().max()) for a, b in zip(got, want))
+    if e or any(not torch.equal(a, full) for a in got):
+        raise AssertionError("ring_all_gather differs from its plain version")
+    n_sh, c = len(ring_chunks), ring_chunks[0].shape[0]
+    b_ms, b_by = bound_ms(4 * n_sh * c + 4 * n_sh * n_sh * c, 0)
+    ring = {"name": "ring_all_gather", "route": "cuda",
+            "source": "stl_fusion_tpu_torch/csrc/ring_all_gather.cu",
+            "replaces": "stl_fusion_tpu/ops/pallas_kernels.py:103",
+            "launches": main_launches["ring_all_gather"], "max_abs_err": e,
+            "ms": time_ms(lambda: rag.ring_all_gather(ring_chunks), device),
+            "plain_ms": time_ms(lambda: rag.ring_all_gather_plain(ring_chunks), device),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(lambda: torch.cat(ring_chunks), device),
+            "shape": f"{n_sh} shards x int32[{c}]"}
+    # device time alone (torch.profiler): tells launch- or host-bound calls
+    # from slow kernels, since CUDA events over back-to-back calls also time
+    # the host's enqueue when it is the slower side
+    for k, fn, symbol in ((opc, lambda: or_popcount(new, old), "or_popcount_kernel"),
+                          (wex, expand, "wave_expand_kernel"),
+                          (ring, lambda: rag.ring_all_gather(ring_chunks), "ring_step_kernel")):
+        reps = 20
+        _, by_name = profile_device(device, lambda: [fn() for _ in range(reps)])
+        k["device_ms"] = sum(v["ms"] for name, v in by_name.items() if symbol in name) / reps
     emit({"phase": "kernels", "card": card,
-          "kernels": [{**k, "kernel_ms": k["ms"]} for k in (opc, wex)]})
-    return [opc, wex]
+          "kernels": [{**k, "kernel_ms": k["ms"]} for k in (opc, wex, ring)]})
+    return [opc, wex, ring]
 
 
 def main() -> int:
@@ -466,24 +610,42 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available; nothing was run", file=sys.stderr)
         return 2
     from stl_fusion_tpu_torch.ops import or_popcount as opc_mod
+    from stl_fusion_tpu_torch.ops import ring_all_gather as rag_mod
     from stl_fusion_tpu_torch.ops import wave as wave_mod
 
+    mods = {"or_popcount": opc_mod, "wave_expand": wave_mod, "ring_all_gather": rag_mod}
     device = torch.device("cuda")
     dev = phase_device()
     phase_build()
-    # the main path: counts to 0 just before, read just after
-    opc_mod.launches = wave_mod.launches = 0
-    phase_hellocart(device)
-    pl = phase_power_law(device, dev["nvidia_smi"])
-    main_launches = {"or_popcount": opc_mod.launches, "wave_expand": wave_mod.launches}
-    emit({"phase": "main_path_launches", **main_launches})
-    for name, count in main_launches.items():
-        if count <= 0:
-            raise AssertionError(f"{name} was not launched on the main path")
-    phase_profile(device, pl["level"])
-    kernels = phase_kernels(device, main_launches, pl["level"], dev["nvidia_smi"])
+
+    def drive(path, run, kernels):
+        """One path of the main path: counts to 0 just before, read just
+        after; each named kernel must have launched."""
+        for mod in mods.values():
+            mod.launches = 0
+        res = run()
+        counts = {name: mod.launches for name, mod in mods.items()}
+        emit({"phase": "main_path_launches", "path": path, **counts})
+        for name in kernels:
+            if counts[name] <= 0:
+                raise AssertionError(f"{name} was not launched on the {path} path")
+        return res, counts
+
+    pl, dense = drive("dense", lambda: (phase_hellocart(device),
+                                        phase_power_law(device, dev["nvidia_smi"]))[1],
+                      ("or_popcount", "wave_expand"))
+    sh, sharded = drive("sharded", lambda: phase_sharded(device, dev["nvidia_smi"], pl["level"]),
+                        ("or_popcount", "wave_expand", "ring_all_gather"))
+    main_launches = {name: dense[name] + sharded[name] for name in mods}
+    g, seeds = pl["level"]["graph"], pl["level"]["seeds"].tolist()
+    phase_profile(device, "run_waves_union", lambda: g.run_waves_union([seeds]), g.clear_invalid)
+    sg = sh.pop("ring_graph")
+    phase_profile(device, "sharded run_wave (ring)", lambda: sg.run_wave(seeds), sg.clear_invalid)
+    del sg
+    kernels = phase_kernels(device, main_launches, pl["level"], sh["ring_chunks"],
+                            dev["nvidia_smi"])
     print(json.dumps({"kernels": [{k: v for k, v in kr.items()
-                                   if k not in ("shape", "checked_n")}
+                                   if k not in ("shape", "checked_n", "device_ms")}
                                   for kr in kernels]}))
     print(dev["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],

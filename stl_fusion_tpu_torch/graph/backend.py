@@ -22,13 +22,16 @@ Applying a device wave back to host is two-tier:
 A recompute (epoch bump) clears the node's pending bit: the wave targeted
 the previous version, and on device the new epoch's edges never matched.
 
-Row blocks (columnar tables), lanes, the sharded/packed/routed mesh mirrors,
-super-rounds and the watchdog are later slices of the port and raise
-``NotImplementedError``; the row-block checks on the apply path stay, as
-no-ops while no block is bound.
+The sharded mirror (``to_sharded``, ``sharded_mirror``,
+``invalidate_cascade_batch_sharded``) runs union bursts on a mesh of logical
+shards (``parallel/``). Row blocks (columnar tables), lanes, the packed and
+routed mesh mirrors, super-rounds and the watchdog are later slices of the
+port and raise ``NotImplementedError``; the row-block checks on the apply
+path stay, as no-ops while no block is bound.
 """
 from __future__ import annotations
 
+import hashlib
 import logging
 import threading
 import time
@@ -40,7 +43,8 @@ import numpy as np
 from ..diagnostics.flight_recorder import RECORDER
 from ..diagnostics.metrics import WaveProfiler, global_metrics, next_wave_seq
 from ..diagnostics.tracing import CAUSE_PREFIX, current_span, span_cause_id
-from .device_graph import DeviceGraph
+from ..parallel import ShardedDeviceGraph, graph_mesh
+from .device_graph import DeviceGraph, check_structure_cache
 
 if TYPE_CHECKING:
     from ..core.computed import Computed
@@ -90,6 +94,7 @@ class TpuGraphBackend:
         #: the nonblocking wave pipeline (a later slice): None while the hub
         #: runs blocking; ``Computed.invalidate_eventually`` reads it
         self.pipeline = None
+        self._sharded_mirror: Optional[dict] = None  # see sharded_mirror
         self.waves_run = 0
         self.device_invalidations = 0
         #: fired on every wave application with the newly-invalid set as the
@@ -465,17 +470,144 @@ class TpuGraphBackend:
     def attach_watchdog(self, *args, **kwargs):
         _not_ported("attach_watchdog", "A.8 (diagnostics and resilience)")
 
-    def to_sharded(self, *args, **kwargs):
-        _not_ported("to_sharded", "A.9 (multi-device)")
-
-    def invalidate_cascade_batch_sharded(self, *args, **kwargs):
-        _not_ported("invalidate_cascade_batch_sharded", "A.9 (multi-device)")
+    def cascade_rows_batch_sharded(self, *args, **kwargs):
+        _not_ported("cascade_rows_batch_sharded", "A.3 (columnar memo table)")
 
     def packed_mirror(self, *args, **kwargs):
-        _not_ported("packed_mirror", "A.9 (multi-device)")
+        _not_ported("packed_mirror", "A.9 after A.4 (packed mesh waves need the ELL and pull waves)")
 
     def enable_mesh_routing(self, *args, **kwargs):
-        _not_ported("enable_mesh_routing", "A.9 (multi-device)")
+        _not_ported("enable_mesh_routing", "A.9 (routed mesh waves and the cluster shard map)")
+
+    # ------------------------------------------------------------------ mesh bridge
+    def to_sharded(self, mesh=None, exchange: str = "packed"):
+        """Snapshot the LIVE mirrored graph as a mesh-sharded wave graph
+        (node epochs, invalid marks, version-carrying edges) — the bridge
+        from the incremental dense mirror to the mesh path
+        (``parallel/sharded_wave.py``). ``mesh`` defaults to one shard on
+        the backend's device. Waves run on it are applied back through the
+        caller (ids are the backend's node ids)."""
+        self.flush()
+        dg = self.graph
+        m = dg.n_edges
+        return ShardedDeviceGraph(
+            dg._h_edge_src[:m].copy(),
+            dg._h_edge_dst[:m].copy(),
+            dg.n_nodes,
+            mesh=mesh if mesh is not None else graph_mesh(device=dg.device),
+            edge_dst_epoch=dg._h_edge_dst_epoch[:m].copy(),
+            exchange=exchange,
+            node_epoch=dg._h_node_epoch,
+            # device-authoritative: run_wave_frontier(sync_host=False) leaves
+            # the host _h_invalid stale; invalid_mask() reads the device copy
+            invalid=dg.invalid_mask(),
+        )
+
+    def sharded_mirror(self, mesh=None, exchange: str = "packed"):
+        """Fingerprint-cached :meth:`to_sharded` — the LIVE bridge to the
+        mesh path. Cached by the full structural state (edges, edge epochs,
+        node epochs, n_nodes) with the struct-version shortcut, so calls on
+        a stable topology are O(1); any bump or append rebuilds on next
+        use. Between mesh bursts the dense state stays authoritative —
+        :meth:`invalidate_cascade_batch_sharded` syncs the invalid state."""
+        self.flush()
+        dg = self.graph
+        sv = dg._struct_version
+
+        def fingerprint() -> bytes:
+            m = dg.n_edges
+            h = hashlib.blake2b(digest_size=16)
+            h.update(np.int64(dg.n_nodes).tobytes())
+            h.update(dg._h_edge_src[:m].tobytes())
+            h.update(dg._h_edge_dst[:m].tobytes())
+            h.update(dg._h_edge_dst_epoch[:m].tobytes())
+            h.update(dg._h_node_epoch[: dg.n_nodes].tobytes())
+            return h.digest()
+
+        cached = self._sharded_mirror
+        # the mesh is compared by IDENTITY through a weakref: a bare id(mesh)
+        # would alias a new mesh that reuses a collected one's id, and a
+        # strong reference would pin a discarded mesh and its graph
+        if cached is not None:
+            cached_ref = cached["mesh"]
+            same_mesh = (
+                cached_ref is None if mesh is None
+                else cached_ref is not None and cached_ref() is mesh
+            )
+            if (
+                same_mesh
+                and cached["exchange"] == exchange
+                and check_structure_cache(cached, sv, fingerprint)
+            ):
+                return cached["graph"]
+        sharded = self.to_sharded(mesh=mesh, exchange=exchange)
+        self._sharded_mirror = {
+            "fp": fingerprint(),
+            "mesh": weakref.ref(mesh) if mesh is not None else None,
+            "exchange": exchange,
+            "validated_at": sv,
+            "graph": sharded,
+        }
+        return sharded
+
+    def invalidate_cascade_batch_sharded(self, computeds: Sequence["Computed"], mesh=None) -> int:
+        """The live mesh burst: expand ALL seeds in one union wave on the
+        mesh, then apply the newly-invalidated set back to the live hub
+        like the dense path (dense mirror + two-tier host apply).
+
+        Per-burst host traffic is O(wave): the mesh's invalid state stays
+        RESIDENT between bursts — seed ids go up, compacted newly ids come
+        back, and the dense mirror catches up via ``mark_invalid``. The
+        dense ``invalid_version`` says whether a host-led change touched the
+        invalid state since the last burst; only then does the bridge pay a
+        full O(n) re-sync."""
+        seeds: List[int] = []
+        fallback = 0
+        for c in computeds:
+            nid = self._id_by_input.get(c.input)
+            if nid is None:
+                c.invalidate(immediately=True)
+                fallback += 1
+            else:
+                seeds.append(nid)
+        if not seeds:
+            return fallback
+        return self._union_sharded_nids(seeds, mesh) + fallback
+
+    def _union_sharded_nids(self, seeds: List[int], mesh=None) -> int:
+        sharded = self.sharded_mirror(mesh=mesh)
+        entry = self._sharded_mirror
+        dg = self.graph
+        if entry.get("invalid_version") != dg.invalid_version:
+            # host-led change since the last burst (or the first burst on
+            # this mirror): the dense state is authoritative — full sync,
+            # once. The host mirror catches up from the same device read, so
+            # the overflow mask diff below never compares against a stale
+            # _h_invalid
+            mask = dg.invalid_mask()
+            dg._h_invalid[: dg.n_nodes] = mask
+            sharded.set_invalid(mask)
+        # the mesh state is about to advance; until the dense apply below
+        # COMPLETES the entry must read as out of sync, or a failure between
+        # the wave and the apply would leave the mesh ahead for good and a
+        # retry of the same seeds would find nothing newly invalid
+        entry.pop("invalid_version", None)
+        cause, wave_seq = self._begin_wave()
+        t0 = time.perf_counter()
+        count, newly_ids, overflow = sharded.run_wave_collect(seeds)
+        if overflow:
+            # wave larger than the collect buffer: one mask-diff readback
+            # against the still-pre-burst dense host mirror
+            newly = sharded.invalid_mask() & ~dg._h_invalid[: sharded.n_nodes]
+            newly_ids = np.nonzero(newly)[0].astype(np.int32)
+        dg.mark_invalid(newly_ids)  # dense device + host mirror catch up
+        entry["invalid_version"] = dg.invalid_version  # in sync again
+        t1 = time.perf_counter()
+        self._apply_newly(newly_ids)
+        self.waves_run += 1
+        self.device_invalidations += count
+        self._profile_wave("sharded_union", len(seeds), cause, t0, t1, len(newly_ids), wave_seq)
+        return count
 
     # ------------------------------------------------------------------ lookup
     def computed_for(self, node_id: int):

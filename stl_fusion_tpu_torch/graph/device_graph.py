@@ -35,7 +35,7 @@ from ..ops.wave import (
     seeds_to_frontier,
 )
 
-__all__ = ["DeviceGraph"]
+__all__ = ["DeviceGraph", "check_structure_cache"]
 
 _MIRROR_SLICE = "ROADMAP A.4/A.5 (topo and lat mirrors, resident live loop)"
 
@@ -49,6 +49,23 @@ def _round_up_pow2(x: int) -> int:
 
 def _not_ported(what: str):
     raise NotImplementedError(f"DeviceGraph.{what} is not ported yet: {_MIRROR_SLICE}")
+
+
+def check_structure_cache(entry: dict, struct_version: int, fp_fn) -> bool:
+    """The shared freshness check for structure-fingerprint caches (the
+    backend's sharded mirror; the topo mirror once ported): O(1) when the
+    entry was already validated — or already known stale — at this
+    struct_version, at most one O(edges) fingerprint hash per structural
+    mutation otherwise. Mutates ``entry['validated_at']``/``['missed_at']``."""
+    if entry["validated_at"] == struct_version:
+        return True
+    if entry.get("missed_at") == struct_version:
+        return False
+    if fp_fn() == entry["fp"]:
+        entry["validated_at"] = struct_version
+        return True
+    entry["missed_at"] = struct_version
+    return False
 
 
 class DeviceGraph:
@@ -67,6 +84,17 @@ class DeviceGraph:
         self._h_invalid = np.zeros(self.n_cap + 1, dtype=bool)  # host-authoritative
         self._g: Optional[GraphArrays] = None  # device copy, built lazily
         self._dirty = True
+        self._init_versions()
+
+    def _init_versions(self) -> None:
+        # bumped on every structural mutation: a structure cache remembers
+        # the version it was last validated (or missed) at, so it pays the
+        # O(edges) fingerprint check at most once per mutation
+        self._struct_version = 0
+        # bumped on every change to the INVALID state (waves that lit
+        # something, marks, clears, epoch bumps): the sharded live bridge
+        # reads it to know whether its resident mesh copy is still current
+        self.invalid_version = 0
 
     @classmethod
     def from_numpy_state(cls, state: dict, device=None) -> "DeviceGraph":
@@ -87,6 +115,7 @@ class DeviceGraph:
             raise ValueError("from_numpy_state: array shapes do not match n_cap/e_cap")
         g._g = None
         g._dirty = True
+        g._init_versions()
         return g
 
     # ------------------------------------------------------------------ build
@@ -94,6 +123,7 @@ class DeviceGraph:
         """Allocate ``count`` dense node ids."""
         start = self.n_nodes
         self.n_nodes += count
+        self._struct_version += 1  # n_nodes is part of the fingerprint
         if self.n_nodes > self.n_cap:
             self._grow_nodes(self.n_nodes)
         return np.arange(start, self.n_nodes, dtype=np.int32)
@@ -134,6 +164,7 @@ class DeviceGraph:
             self._g = self._g._replace(n_live=self.n_edges)
         else:
             self._dirty = True
+        self._struct_version += 1
 
     def bump_epochs(self, node_ids: np.ndarray) -> None:
         """Nodes recomputed: new epoch ⇒ their stale in-edges go dead, and
@@ -145,6 +176,8 @@ class DeviceGraph:
             return
         self._h_node_epoch[node_ids] += 1
         self._h_invalid[node_ids] = False
+        self._struct_version += 1
+        self.invalid_version += 1
         if self._g is not None and not self._dirty:
             ids = self._upload(node_ids).long()
             self._g.node_epoch.index_add_(
@@ -160,6 +193,7 @@ class DeviceGraph:
         if node_ids.size == 0:
             return
         self._h_invalid[node_ids] = True
+        self.invalid_version += 1
         self._device_invalid_update(node_ids, True)
 
     def clear_invalid_ids(self, node_ids: np.ndarray) -> None:
@@ -168,6 +202,7 @@ class DeviceGraph:
         if node_ids.size == 0:
             return
         self._h_invalid[node_ids] = False
+        self.invalid_version += 1
         self._device_invalid_update(node_ids, False)
 
     def _device_invalid_update(self, node_ids: np.ndarray, value: bool) -> None:
@@ -270,6 +305,8 @@ class DeviceGraph:
         """Apply a compacted-wave readback to ``_h_invalid``: the id buffer
         when it fit, otherwise a mask diff against the device words (read
         back bit-packed). Returns the newly-invalid ids."""
+        if count or overflow:
+            self.invalid_version += 1
         if overflow:
             dev_mask = unpack_words_host(self._g.invalid.cpu().numpy(), len(self._h_invalid))
             newly = dev_mask & ~self._h_invalid
@@ -290,6 +327,8 @@ class DeviceGraph:
             mat[i, : len(s)] = np.asarray(s, dtype=np.int32)
         self._g, counts, newly_w = run_waves_chained_packed(self._upload(mat), g)
         newly = unpack_words_host(newly_w.cpu().numpy(), self.n_cap + 1)  # 1 bit/node
+        if newly.any():  # a no-op wave leaves the version alone
+            self.invalid_version += 1
         self._h_invalid |= newly
         return counts.numpy().astype(np.int64), np.nonzero(newly)[0].astype(np.int32)
 
@@ -307,6 +346,8 @@ class DeviceGraph:
         flat = np.concatenate(flat) if flat else np.empty(0, np.int32)
         self._g, count, newly_w = run_waves_union_packed(self._upload(flat), g)
         newly = unpack_words_host(newly_w.cpu().numpy(), self.n_cap + 1)  # 1 bit/node
+        if newly.any():  # a no-op wave leaves the version alone
+            self.invalid_version += 1
         self._h_invalid |= newly
         return count, np.nonzero(newly)[0].astype(np.int32)
 
@@ -314,6 +355,7 @@ class DeviceGraph:
         """Wave from a prebuilt bool frontier (bench hot path — the host copy
         of the invalid state stays stale unless ``sync_host``)."""
         g = self.device_arrays()
+        self.invalid_version += 1
         self._g, count = run_wave(seed_frontier, g)
         if sync_host:
             self._sync_invalid_back()
@@ -322,6 +364,7 @@ class DeviceGraph:
     def _sync_invalid_back(self) -> None:
         """After a device wave the device invalid words are newer — pull
         them bit-packed."""
+        self.invalid_version += 1
         self._h_invalid = unpack_words_host(self._g.invalid.cpu().numpy(), self.n_cap + 1)
 
     # ------------------------------------------------------------------ mirrors (later slices)
@@ -367,6 +410,7 @@ class DeviceGraph:
         return np.nonzero(self.invalid_mask())[0].astype(np.int32)
 
     def clear_invalid(self) -> None:
+        self.invalid_version += 1
         g = self.device_arrays()
         g.invalid.zero_()
         self._h_invalid = np.zeros(self.n_cap + 1, dtype=bool)
@@ -390,4 +434,5 @@ class DeviceGraph:
             arr[k : self.n_edges] = pad_val
         self.n_edges = k
         self._dirty = True
+        self._struct_version += 1
         return removed

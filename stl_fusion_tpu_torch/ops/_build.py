@@ -37,6 +37,10 @@ KERNELS: Dict[str, tuple] = {
         "wave_expand.cu", "wave_expand_launch",
         [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _P],
     ),
+    # the three pointer tables are HOST arrays of device pointers
+    "ring_all_gather": (
+        "ring_all_gather.cu", "ring_all_gather_launch", [_P, _P, _P, _I, _LL, _P],
+    ),
 }
 
 NVCC_FLAGS = [

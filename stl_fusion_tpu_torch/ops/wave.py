@@ -119,21 +119,26 @@ def wave_expand_plain(
     return pack_bits(nxt)
 
 
-def _check_expand(frontier_w, invalid_w, node_epoch, edge_src, edge_dst, edge_dst_epoch):
+def _check_expand(frontier_w, invalid_w, node_epoch, edge_src, edge_dst, edge_dst_epoch, n_src):
     ts = (frontier_w, invalid_w, node_epoch, edge_src, edge_dst, edge_dst_epoch)
     for t in ts:
         if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous():
             raise ValueError("wave_expand: every input must be a contiguous 1-D int32 tensor")
         if t.device != frontier_w.device:
             raise ValueError("wave_expand: inputs must share one device")
-    if frontier_w.shape != invalid_w.shape or invalid_w.shape[0] * 32 < node_epoch.shape[0]:
-        raise ValueError("wave_expand: frontier/invalid words must cover n_cap+1 bits")
+    if invalid_w.shape[0] * 32 < node_epoch.shape[0]:
+        raise ValueError("wave_expand: invalid words must cover n_cap+1 bits")
     if not (edge_src.shape == edge_dst.shape == edge_dst_epoch.shape):
         raise ValueError("wave_expand: edge arrays must have equal length")
+    if n_src is None:  # one reduction and a host sync: hot callers pass it
+        n_src = int(edge_src.max()) + 1 if edge_src.numel() else 0
+    if frontier_w.shape[0] * 32 < n_src:
+        raise ValueError("wave_expand: frontier words must cover max(edge_src)+1 bits")
 
 
 def wave_expand(
-    frontier_w, invalid_w, node_epoch, edge_src, edge_dst, edge_dst_epoch
+    frontier_w, invalid_w, node_epoch, edge_src, edge_dst, edge_dst_epoch,
+    n_src: Optional[int] = None,
 ) -> torch.Tensor:
     """One BFS level on packed words → the next frontier's words.
 
@@ -142,9 +147,17 @@ def wave_expand(
     is clear, and the dependent is not the dummy slot n_cap. The result
     holds no node that is already invalid. A CPU tensor takes the plain
     version; a CUDA tensor launches ``csrc/wave_expand.cu`` or raises.
+
+    Sources and dependents may live in different id spaces: a shard of the
+    sharded wave reads the GLOBAL frontier with global ``edge_src`` and
+    writes its LOCAL invalid words through local ``edge_dst``. The frontier
+    must cover ``max(edge_src)+1`` bits; ``n_src`` is a bound on that
+    count which a caller that built the edges already knows (the dense
+    graph's ``n_cap+1``, the mesh's ``n_global``), so the check costs no
+    device reduction.
     """
     global launches
-    _check_expand(frontier_w, invalid_w, node_epoch, edge_src, edge_dst, edge_dst_epoch)
+    _check_expand(frontier_w, invalid_w, node_epoch, edge_src, edge_dst, edge_dst_epoch, n_src)
     if frontier_w.device.type == "cpu":
         return wave_expand_plain(
             frontier_w, invalid_w, node_epoch, edge_src, edge_dst, edge_dst_epoch
@@ -164,7 +177,7 @@ def wave_expand(
 
 def _level(frontier_w: torch.Tensor, g: GraphArrays) -> Tuple[torch.Tensor, torch.Tensor]:
     """expand + merge: (next words, level count 0-d); g.invalid |= next."""
-    nxt = wave_expand(frontier_w, g.invalid, g.node_epoch, *g.live_edges())
+    nxt = wave_expand(frontier_w, g.invalid, g.node_epoch, *g.live_edges(), n_src=g.n_cap + 1)
     _, count = or_popcount(nxt, g.invalid, out=g.invalid)
     return nxt, count
 

@@ -13,6 +13,7 @@ import stl_fusion_tpu_torch
 from stl_fusion_tpu_torch.core import FusionHub
 from stl_fusion_tpu_torch.device import resolve_device
 from stl_fusion_tpu_torch.graph import DeviceGraph, TpuGraphBackend
+from stl_fusion_tpu_torch.parallel import graph_mesh
 
 PKG = Path(stl_fusion_tpu_torch.__file__).resolve().parent
 FORBIDDEN = {"jax", "jaxlib", "stl_fusion_tpu"}
@@ -55,6 +56,8 @@ def test_default_device_raises_without_a_card():
         TpuGraphBackend(FusionHub())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DeviceGraph(device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        graph_mesh(8)
 
 
 def test_explicit_cpu_runs():
