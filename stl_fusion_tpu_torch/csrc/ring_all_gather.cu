@@ -1,92 +1,121 @@
-// ring_all_gather: the frontier exchange of the sharded wave, hop by hop.
+// ring_all_gather: the frontier exchange of the sharded wave, in one launch.
 //
-// Replaces the Pallas kernel stl_fusion_tpu/ops/pallas_kernels.py:
-// make_ring_all_gather / _ring_kernel. There each TPU device wrote its own
-// chunk of frontier words into its output and its comm slot 0, then made
-// n-1 hops: at step s it sent comm slot s%2 to device (i+1)%n by remote DMA
-// into that device's slot 1-s%2, waited on DMA semaphores, and wrote the
-// received chunk at owner (i-s-1) mod n of its output.
+// Replaces the Pallas kernel stl_fusion_tpu/ops/pallas_kernels.py:103
+// (_ring_kernel, built by make_ring_all_gather). There each TPU device wrote
+// its own chunk into its output, then made n-1 double-buffered hops: remote
+// DMA of a comm slot to the next device, a wait on DMA semaphores, and a copy
+// of the received chunk into the output. The result is an all-gather: every
+// device ends with every chunk in device order.
 //
-// Here the shards are n logical shards of one card, each with its own comm
-// buffer (two slots) and its own output, reached through a pointer table
-// passed by value. One launch covers one step for every shard (grid y =
-// sending shard): step -1 places each shard's own chunk, step s >= 0 moves
-// shard d's send slot into shard d+1's receive slot and into d+1's output at
-// owner (d-s) mod n. Within a launch every read is from slot s%2 and every
-// write to slot 1-s%2 or to a distinct output chunk, so nothing races; the
-// launch boundary on the stream takes the place of the TPU's semaphores.
-// The chunk is any whole number of int32 words (the TPU's 128-lane tiling
-// does not apply).
+// Here the n shards are logical shards of one card, so no chip-to-chip link
+// exists for the hops to hide, and each hop would only copy a chunk through
+// a comm buffer within the same memory. The kernel computes the all-gather
+// directly: one launch, grid (tiles of the chunk) x (owner). Block (x, o)
+// reads tile x of owner o's chunk once from device memory and writes it at
+// offset o*c into all n outputs. No comm buffers, no barrier: every output
+// word has exactly one writer. The hop schedule returns only with
+// peer-to-peer writes between cards (ROADMAP A.10); ops/ring_all_gather.py
+// keeps it as the plain version, the spec the TPU kernel is compared with.
 //
-// Bound on the H100: bytes. The all-gather must read n chunks and write n*n
-// (n=8, 39,063 words: 1.25 MB in, 10 MB out, ~3.4 us at 3.35 TB/s). The hop
-// schedule moves 3*n*n chunks instead (every hop reads a chunk and writes it
-// twice) and pays n launches, so launch latency sets its time at this size;
-// a single launch with a grid-wide barrier, or peer-to-peer writes between
-// cards, is later work. Loads are plain coalesced 4-byte words: an owner's
-// chunk starts at owner*chunk words, which is 16-byte aligned only when the
-// chunk is a multiple of 4 words.
+// Bound on the H100: bytes, 4*n*c in and 4*n*n*c out. At n = 8 and
+// c = 39,063 words that is 1.25 MB + 10 MB, 3.36 us at 3.35 TB/s. Stores are
+// 16-byte vectors (int4) throughout. When c % 4 == 0 and every row and the
+// output are 16-byte aligned, each owner's offset o*c is aligned too, and a
+// thread moves one int4 from its owner's row into all n outputs. Otherwise
+// (the sharded wave's chunk of n_local/32 words is odd) a block stages a
+// tile of kTileWords words of its owner's chunk in shared memory with
+// coalesced 4-byte loads, then writes it into each output as aligned int4s
+// from four shared-memory words each, with at most 3 scalar words at either
+// end of the tile.
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxShards = 64;
-constexpr long long kMaxBlocksX = 132 * 4;
+constexpr int kTileWords = 1024;  // the scalar path's shared-memory tile
+constexpr long long kMaxBlocks = 132 * 8;
 
-struct RingPtrs {
-  const int* local[kMaxShards];
-  int* comm[kMaxShards];  // int32[2 * chunk] per shard: slot 0, slot 1
-  int* out[kMaxShards];   // int32[n * chunk] per shard
+struct Rows {
+  const int* row[kMaxShards];  // owner o's chunk: int32[c]
 };
 
+template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
-ring_step_kernel(const RingPtrs p, int n, long long chunk, int step) {
-  const int d = blockIdx.y;
-  const int* src;
-  int* to_comm;
-  int* to_out;
-  if (step < 0) {  // own chunk: output slot d and comm slot 0
-    src = p.local[d];
-    to_comm = p.comm[d];
-    to_out = p.out[d] + (long long)d * chunk;
+ring_gather_kernel(const Rows src, int* out, int n, long long c) {
+  const int o = blockIdx.y;
+  int4* out4 = reinterpret_cast<int4*>(out);
+  if constexpr (kVec) {
+    const int4* in = reinterpret_cast<const int4*>(src.row[o]);
+    const long long c4 = c >> 2;
+    for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < c4;
+         i += (long long)gridDim.x * kThreads) {
+      const int4 x = __ldg(in + i);
+#pragma unroll 8
+      for (int d = 0; d < n; ++d) out4[((long long)d * n + o) * c4 + i] = x;
+    }
   } else {
-    const int to = (d + 1) % n;
-    const int send = step & 1;
-    const int owner = ((d - step) % n + n) % n;
-    src = p.comm[d] + send * chunk;
-    to_comm = p.comm[to] + (1 - send) * chunk;
-    to_out = p.out[to] + (long long)owner * chunk;
+    __shared__ int tile[kTileWords];
+    const int* in = src.row[o];
+    for (long long i0 = (long long)blockIdx.x * kTileWords; i0 < c;
+         i0 += (long long)gridDim.x * kTileWords) {
+      const int len = (int)(c - i0 < kTileWords ? c - i0 : kTileWords);
+      for (int k = threadIdx.x; k < len; k += kThreads) tile[k] = __ldg(in + i0 + k);
+      __syncthreads();
+      for (int d = 0; d < n; ++d) {
+        // this tile's words land at [at, end) of the flat output
+        const long long at = ((long long)d * n + o) * c + i0, end = at + len;
+        const long long a0 = (at + 3) & ~3ll, a1 = end & ~3ll;  // the aligned span
+        if (a0 >= end) {  // no aligned int4 inside: a tile of < 4 words
+          if (threadIdx.x < len) out[at + threadIdx.x] = tile[threadIdx.x];
+          continue;
+        }
+        if (threadIdx.x < a0 - at) out[at + threadIdx.x] = tile[threadIdx.x];
+        if (threadIdx.x < end - a1) out[a1 + threadIdx.x] = tile[a1 - at + threadIdx.x];
+        for (long long q = (a0 >> 2) + threadIdx.x; q < (a1 >> 2); q += kThreads) {
+          const int k = (int)((q << 2) - at);
+          out4[q] = make_int4(tile[k], tile[k + 1], tile[k + 2], tile[k + 3]);
+        }
+      }
+      __syncthreads();  // the tile is refilled next iteration
+    }
   }
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < chunk; i += stride) {
-    const int w = src[i];
-    to_comm[i] = w;
-    to_out[i] = w;
-  }
+}
+
+int gather(const Rows& src, void* out, int n, long long c, void* stream) {
+  if (n < 1 || n > kMaxShards || c < 1 || (size_t)out % 16) return (int)cudaErrorInvalidValue;
+  bool vec = c % 4 == 0;
+  for (int o = 0; o < n; ++o) vec = vec && (size_t)src.row[o] % 16 == 0;
+  const long long per_block = vec ? 4ll * kThreads : kTileWords;
+  long long bx = (c + per_block - 1) / per_block;
+  if (bx > kMaxBlocks / n) bx = kMaxBlocks / n;
+  if (bx < 1) bx = 1;
+  const dim3 grid((unsigned)bx, (unsigned)n);
+  if (vec)
+    ring_gather_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(src, (int*)out, n, c);
+  else
+    ring_gather_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(src, (int*)out, n, c);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// local_ptrs, comm_ptrs, out_ptrs: HOST arrays of n device pointers each.
-// Enqueues n launches (step -1, then steps 0..n-2) on `stream`.
-extern "C" int ring_all_gather_launch(const void* local_ptrs, const void* comm_ptrs,
-                                      const void* out_ptrs, int n, long long chunk,
-                                      void* stream) {
-  if (n < 1 || n > kMaxShards || chunk < 1) return (int)cudaErrorInvalidValue;
-  RingPtrs p;
-  for (int d = 0; d < n; ++d) {
-    p.local[d] = static_cast<const int* const*>(local_ptrs)[d];
-    p.comm[d] = static_cast<int* const*>(comm_ptrs)[d];
-    p.out[d] = static_cast<int* const*>(out_ptrs)[d];
-  }
-  long long bx = (chunk + kThreads - 1) / kThreads;
-  if (bx > kMaxBlocksX) bx = kMaxBlocksX;
-  const dim3 grid((unsigned)bx, (unsigned)n);
-  for (int step = -1; step < n - 1; ++step) {
-    ring_step_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(p, n, chunk, step);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return (int)cudaGetLastError();
+// The shards' chunks as rows of one 2-D tensor: row o at base + o*row_stride
+// words. out: int32[n, n*c]. One launch on `stream`.
+extern "C" int ring_all_gather_rows_launch(const void* base, long long row_stride, void* out,
+                                           int n, long long c, void* stream) {
+  if (n < 1 || n > kMaxShards) return (int)cudaErrorInvalidValue;
+  Rows src{};
+  for (int o = 0; o < n; ++o) src.row[o] = (const int*)base + o * row_stride;
+  return gather(src, out, n, c, stream);
+}
+
+// The shards' chunks as separate tensors: `ptrs` is a HOST array of n device
+// pointers. out: int32[n, n*c]. One launch on `stream`.
+extern "C" int ring_all_gather_table_launch(const void* ptrs, void* out, int n, long long c,
+                                            void* stream) {
+  if (n < 1 || n > kMaxShards) return (int)cudaErrorInvalidValue;
+  Rows src{};
+  for (int o = 0; o < n; ++o) src.row[o] = static_cast<const int* const*>(ptrs)[o];
+  return gather(src, out, n, c, stream);
 }

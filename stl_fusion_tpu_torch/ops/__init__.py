@@ -1,3 +1,4 @@
 """Device ops of the invalidation wave: bit packing, the ``or_popcount``
-finalizer and the dense BFS wave (``wave_expand``), each hand-written
-kernel beside its plain PyTorch version."""
+finalizer, the BFS level (``wave_expand``: pure, merged, and for every shard
+of a mesh at once) and the ring all-gather, each hand-written kernel beside
+its plain PyTorch version."""

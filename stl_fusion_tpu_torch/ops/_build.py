@@ -30,17 +30,20 @@ BUILD_DIR = _PKG / "_build"
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
-#: kernel → (source file, C entry, its argument types)
+#: kernel → (source file, {C entry: its argument types}); one library per source
 KERNELS: Dict[str, tuple] = {
-    "or_popcount": ("or_popcount.cu", "or_popcount_launch", [_P, _P, _P, _LL, _P, _P]),
-    "wave_expand": (
-        "wave_expand.cu", "wave_expand_launch",
-        [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _P],
-    ),
-    # the three pointer tables are HOST arrays of device pointers
-    "ring_all_gather": (
-        "ring_all_gather.cu", "ring_all_gather_launch", [_P, _P, _P, _I, _LL, _P],
-    ),
+    "or_popcount": ("or_popcount.cu", {"or_popcount_launch": [_P, _P, _P, _LL, _P, _P]}),
+    "wave_expand": ("wave_expand.cu", {
+        "wave_expand_launch": [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _P],
+        "wave_expand_merge_launch": [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _P, _P],
+        # the shard table is a DEVICE array of int64[n, 8] rows
+        "wave_expand_shards_launch": [_P, _LL, _P, _I, _LL, _P, _LL, _P, _P],
+    }),
+    "ring_all_gather": ("ring_all_gather.cu", {
+        "ring_all_gather_rows_launch": [_P, _LL, _P, _I, _LL, _P],
+        # the pointer table is a HOST array of n device pointers
+        "ring_all_gather_table_launch": [_P, _P, _I, _LL, _P],
+    }),
 }
 
 NVCC_FLAGS = [
@@ -116,21 +119,22 @@ def load(name: str) -> ctypes.CDLL:
         if not out.exists():
             build_all([name])
         lib = ctypes.CDLL(str(out))
-        _src, entry, argtypes = KERNELS[name]
-        fn = getattr(lib, entry)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for entry, argtypes in KERNELS[name][1].items():
+            fn = getattr(lib, entry)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _libs[name] = lib
     return lib
 
 
-def launch(name: str, *args) -> None:
-    """Call kernel ``name``'s C entry on the current stream; raise on a
-    nonzero CUDA error code."""
+def launch(name: str, entry: str, *args) -> None:
+    """Call C entry ``entry`` of kernel ``name`` on the current device's
+    current stream; raise on a nonzero CUDA error code."""
     import torch
 
-    _src, entry, _ = KERNELS[name]
-    stream = torch.cuda.current_stream().cuda_stream
+    # the raw handle: torch.cuda.current_stream() builds a Stream object per
+    # call, which costs more host time than the launch itself
+    stream = torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
     err = getattr(load(name), entry)(*args, stream)
     if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"{name}: {entry} failed with CUDA error {err}")

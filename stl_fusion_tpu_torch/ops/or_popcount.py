@@ -87,8 +87,8 @@ def or_popcount(
             raise ValueError("or_popcount: tensors must be 16-byte aligned")
     count = torch.zeros((), dtype=torch.int64, device=new_bits.device)
     _build.launch(
-        "or_popcount", new_bits.data_ptr(), old_bits.data_ptr(), merged.data_ptr(),
-        new_bits.shape[0], count.data_ptr(),
+        "or_popcount", "or_popcount_launch", new_bits.data_ptr(), old_bits.data_ptr(),
+        merged.data_ptr(), new_bits.shape[0], count.data_ptr(),
     )
     launches += 1
     return merged, count

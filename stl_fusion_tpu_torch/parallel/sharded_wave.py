@@ -18,22 +18,28 @@ ids, pad 0), ``edge_dst_local`` (pad ``n_local``), ``edge_dst_epoch``
 set). A padding edge points at the dummy slot with epoch -1, so it never
 fires: the counterpart of JAX's clamped gather and dropped scatter.
 
-One BFS level is, for every shard in turn (a Python loop takes the place of
-``shard_map``): the exchange, then :func:`~..ops.wave.wave_expand` with the
-gathered global frontier, then :func:`~..ops.or_popcount.or_popcount` into
-the shard's own invalid words. The ``psum`` of the shard counts becomes one
-sum and one host read per level, as in the dense wave.
+One BFS level is the exchange, then ONE launch of
+:func:`~..ops.wave.wave_expand_shards` for every shard (grid y = shard;
+the counterpart of ``shard_map`` over the JAX ``wave_step``): each shard
+reads the gathered global frontier with its global ``edge_src``, merges the
+level into its own invalid words, and writes its row of one
+``[n, width]`` next-frontier tensor, zeroed once per level together with
+one int64 count for all shards (the ``psum``), read once per level as in
+the dense wave. The shards' fixed tensors reach the kernel through a
+:class:`~..ops.wave.ShardTable` built once per graph.
 
 ``exchange`` selects the frontier collective; all three give identical
 results:
-- ``"packed"`` (default): the shards' frontier words concatenated
-  (``torch.cat``; on a one-card mesh that is the whole all-gather);
-- ``"ring"``: the words move shard to shard through the hand-written ring
-  kernel (``ops/ring_all_gather.py``), each shard receiving its own copy.
-  Each shard passes its UNPADDED ``n_local/32`` words, so the gathered
-  vector is exactly the global packed frontier and a global id indexes it
-  directly (the JAX layout pads each device's words to 128 lanes and
-  indexes ``owner*wp + within>>5``: the same bits);
+- ``"packed"`` (default): the shards' frontier words concatenated into one
+  vector every shard reads (on a one-card mesh that is the whole
+  all-gather);
+- ``"ring"``: the hand-written ring all-gather kernel
+  (``ops/ring_all_gather.py``) takes the first ``n_local/32`` words of each
+  row of the next-frontier tensor as its 2-D input, and each shard reads
+  its own copy of the result. Those UNPADDED words make the gathered vector
+  exactly the global packed frontier, so a global id indexes it directly
+  (the JAX layout pads each device's words to 128 lanes and indexes
+  ``owner*wp + within>>5``: the same bits);
 - ``"bool"``: the plain boolean all-gather (the reference exchange).
 
 The wave follows the JAX union rule: seeds CONDUCT even when already
@@ -41,7 +47,7 @@ invalid; only fresh seeds count; invalid non-seeds block.
 """
 from __future__ import annotations
 
-from typing import Callable, List, Mapping, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,7 +55,7 @@ import torch
 from ..ops.bitops import pack_bits, pack_mask_host, unpack_bits, unpack_words_host
 from ..ops.or_popcount import or_popcount
 from ..ops.ring_all_gather import ring_all_gather
-from ..ops.wave import wave_expand
+from ..ops.wave import ShardTable, wave_expand_shards
 from .mesh import Mesh, graph_mesh
 
 __all__ = ["ShardedGraphArrays", "ShardedDeviceGraph", "build_sharded_wave"]
@@ -67,26 +73,28 @@ class ShardedGraphArrays(NamedTuple):
     invalid: Tuple[torch.Tensor, ...]  # int32[n_local/32 + 1] — packed bits
 
 
-def _shard_words(mask: torch.Tensor, n_dev: int, n_local: int) -> List[torch.Tensor]:
-    """bool[n_global] → each shard's packed words over n_local+1 bits (the
-    dummy bit clear)."""
-    rows = torch.nn.functional.pad(mask.view(n_dev, n_local), (0, 1))
-    return [pack_bits(rows[d]) for d in range(n_dev)]
+def _shard_words(mask: torch.Tensor, n_dev: int, n_local: int, width: int) -> torch.Tensor:
+    """bool[n_global] → the shards' packed words as int32[n_dev, width]: row
+    d holds shard d's n_local bits, the dummy bit and the padding clear."""
+    rows = torch.nn.functional.pad(mask.view(n_dev, n_local), (0, 32 * width - n_local))
+    return pack_bits(rows.reshape(-1)).view(n_dev, width)
 
 
 def _make_gather(exchange: str, n_dev: int, n_local: int) -> Callable:
-    """The per-level exchange: shard frontier words → for each shard, the
-    global frontier's words (covering n_global bits)."""
+    """The per-level exchange: the shards' frontier rows int32[n_dev,
+    width] → the global frontier's words (covering n_global bits), as one
+    vector every shard reads or as one row per shard."""
     w = n_local // 32
     if exchange == "packed":
-        def gather(fs):
-            return [torch.cat([f[:w] for f in fs])] * n_dev
+        def gather(rows):
+            return rows[:, :w].contiguous().view(-1)
     elif exchange == "bool":
-        def gather(fs):
-            return [pack_bits(torch.cat([unpack_bits(f, n_local) for f in fs]))] * n_dev
+        def gather(rows):
+            bits = unpack_bits(rows.reshape(-1), rows.numel() * 32).view(n_dev, -1)
+            return pack_bits(bits[:, :n_local].reshape(-1))
     else:
-        def gather(fs):
-            return ring_all_gather([f[:w] for f in fs])
+        def gather(rows):
+            return ring_all_gather(rows[:, :w])
     return gather
 
 
@@ -112,29 +120,23 @@ def build_sharded_wave(mesh: Mesh, n_global: int, exchange: str = "packed"):
     if exchange in ("packed", "ring") and n_local % 32:
         raise ValueError("packed/ring exchange needs n_local % 32 == 0")
     gather = _make_gather(exchange, n_dev, n_local)
+    last: list = [None, None]  # the last graph and its ShardTable
 
-    def level(fs, g: ShardedGraphArrays):
-        """One BFS level on every shard: (next shard words, lit count)."""
-        full = gather(fs)
-        nxt, lit = [], []
-        for d in range(n_dev):
-            nx = wave_expand(
-                full[d], g.invalid[d], g.node_epoch[d], g.edge_src[d],
-                g.edge_dst_local[d], g.edge_dst_epoch[d], n_src=n_global,
-            )
-            _, count = or_popcount(nx, g.invalid[d], out=g.invalid[d])
-            nxt.append(nx)
-            lit.append(count)
-        return nxt, int(torch.stack(lit).sum())  # the psum: one host read per level
+    def shard_table(g: ShardedGraphArrays) -> ShardTable:
+        if last[0] is not g:  # a table holds g's addresses: build it once per graph
+            last[:] = [g, ShardTable(*g)]
+        return last[1]
 
     def wave(seed_frontier: torch.Tensor, g: ShardedGraphArrays, stats: Optional[dict] = None):
-        seeds = _shard_words(seed_frontier, n_dev, n_local)
+        table = shard_table(g)
+        frontier = _shard_words(seed_frontier, n_dev, n_local, table.width)
         # every seed merges and conducts; only the fresh ones count
-        fresh = [or_popcount(s, inv, out=inv)[1] for s, inv in zip(seeds, g.invalid)]
+        fresh = [or_popcount(frontier[d, :table.words], inv, out=inv)[1]
+                 for d, inv in enumerate(g.invalid)]
         count = levels = 0
-        frontier = seeds
         while True:  # at least one level: an empty frontier lights nothing
-            frontier, lit = level(frontier, g)
+            frontier, lit = wave_expand_shards(gather(frontier), table, n_global)
+            lit = int(lit)  # the psum: one host read per level
             if lit == 0:
                 break
             count += lit

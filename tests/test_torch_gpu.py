@@ -105,20 +105,110 @@ def test_device_graph_on_card_matches_cpu(card):
     np.testing.assert_array_equal(gpu[3], cpu[3])
 
 
+@pytest.mark.parametrize("form", ["list", "rows"])
 @pytest.mark.parametrize("n_shards", [1, 2, 3, 8])
 @pytest.mark.parametrize("chunk", [1, 31, 128, 39063])
-def test_ring_all_gather_kernel_matches_plain(card, n_shards, chunk):
+def test_ring_all_gather_kernel_matches_plain(card, n_shards, chunk, form):
+    """From a list, and from the rows of a 2-D tensor whose row stride
+    exceeds the chunk (3 words past it: the rows are misaligned for int4,
+    so chunks that are a multiple of 4 take the vector path from a list and
+    the scalar path from rows): one CUDA launch per gather."""
     rng = np.random.default_rng(1000 * n_shards + chunk)
-    chunks = [torch.from_numpy(rng.integers(-(2**31), 2**31, size=chunk, dtype=np.int32)).to(card)
-              for _ in range(n_shards)]
+    words = torch.from_numpy(rng.integers(-(2**31), 2**31, size=(n_shards, chunk + 3),
+                                          dtype=np.int32)).to(card)
+    chunks = words[:, :chunk] if form == "rows" else [w[:chunk].clone() for w in words]
     want = rag.ring_all_gather_plain(chunks)
-    before = rag.launches
+    before = (rag.launches, rag.cuda_launches)
     got = rag.ring_all_gather(chunks)
     torch.cuda.synchronize()
-    assert rag.launches == before + 1
-    full = torch.cat(chunks)
+    assert (rag.launches, rag.cuda_launches) == (before[0] + 1, before[1] + 1)
+    assert got.shape == (n_shards, n_shards * chunk)
+    full = words[:, :chunk].reshape(-1)
+    assert torch.equal(got, want)
     for d in range(n_shards):
-        assert torch.equal(got[d], want[d]) and torch.equal(got[d], full), f"shard {d}"
+        assert torch.equal(got[d], full), f"shard {d}"
+
+
+def _merge_inputs(card, seed, n=20000):
+    """A level on the card with the merged kernel's edge cases: stale
+    epochs, pre-invalid dependents (some in the frontier), duplicate edges,
+    padding edges and a live prefix with a ragged tail of 1-3 edges."""
+    rng, src, dst, ne, n_cap = _state(n, seed)
+    dup = rng.choice(len(src), 500, replace=False)
+    src, dst = np.concatenate([src, src[dup]]), np.concatenate([dst, dst[dup]])
+    pad = 4 + seed % 3  # padding slots: src n_cap, dst n_cap, epoch -1
+    es = np.concatenate([src, np.full(pad, n_cap)]).astype(np.int32)
+    ed = np.concatenate([dst, np.full(pad, n_cap)]).astype(np.int32)
+    ee = np.concatenate([np.zeros(len(src)), np.full(pad, -1)]).astype(np.int32)
+    n_live = len(es) - (len(es) % 4 == 0)  # drop a padding slot for a ragged tail
+    inv = np.zeros(n_cap + 1, bool)
+    inv[rng.choice(n, 500, replace=False)] = True
+    frontier = np.zeros(n_cap + 1, bool)
+    frontier[rng.choice(n, 3000, replace=False)] = True
+    frontier[np.nonzero(inv)[0][:50]] = True
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(card)  # noqa: E731
+    return (pack_bits(t(frontier)), pack_bits(t(inv)), t(ne), t(es)[:n_live], t(ed)[:n_live],
+            t(ee)[:n_live])
+
+
+@pytest.mark.parametrize("seed", [3, 4, 5])
+def test_wave_expand_merge_kernel_matches_plain(card, seed):
+    fw, inv, ne, es, ed, ee = _merge_inputs(card, seed)
+    assert es.shape[0] % 4
+    want_inv = inv.clone()
+    want, want_c = tw.wave_expand_merge_plain(fw, want_inv, ne, es, ed, ee)
+    before = (tw.launches, tw.form_launches["merge"])
+    got, got_c = tw.wave_expand_merge(fw, inv, ne, es, ed, ee)
+    torch.cuda.synchronize()
+    assert (tw.launches, tw.form_launches["merge"]) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(got, want) and torch.equal(inv, want_inv)
+    assert int(got_c) == int(want_c) > 0
+    again, zero = tw.wave_expand_merge(fw, inv, ne, es, ed, ee)  # all lit already
+    assert int(zero) == 0 and not again.any()
+
+
+def test_wave_expand_rejects_misaligned_int4_base(card):
+    fw, inv, ne, es, ed, ee = _merge_inputs(card, 3)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tw.wave_expand(fw, inv, ne, es[1:], ed[1:], ee[1:])
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tw.wave_expand_merge(fw, inv, ne, es[1:], ed[1:], ee[1:])
+
+
+@pytest.mark.parametrize("n_shards", [1, 3, 8])
+def test_wave_expand_shards_kernel_matches_per_shard_plain(card, n_shards):
+    """One launch for every shard against n single-shard plain levels, on a
+    shared 1-D frontier and on 2-D rows."""
+    n = 50000
+    rng, src, dst, _, _ = _state(n, 11)
+    node_epoch = np.zeros(n, np.int32)
+    node_epoch[rng.choice(n, 500, replace=False)] = 1
+    invalid = np.zeros(n, bool)
+    invalid[rng.choice(n, 800, replace=False)] = True
+    sg = ShardedDeviceGraph(src, dst, n, mesh=graph_mesh(n_shards, device=card),
+                            edge_dst_epoch=np.zeros(len(src), np.int32), node_epoch=node_epoch,
+                            invalid=invalid)
+    frontier = torch.from_numpy(rng.random(sg.n_global) < 0.05).to(card)
+    words = pack_bits(frontier)
+    start = [x.clone() for x in sg.g.invalid]
+    for fw in (words, torch.stack([words] * n_shards)):
+        for x, x0 in zip(sg.g.invalid, start):
+            x.copy_(x0)
+        table = tw.ShardTable(*sg.g)
+        before = tw.form_launches["shards"]
+        got, count = tw.wave_expand_shards(fw, table, sg.n_global)
+        torch.cuda.synchronize()
+        assert tw.form_launches["shards"] == before + 1
+        want_count = 0
+        for d in range(n_shards):
+            ref = start[d].clone()
+            nx, lit = tw.wave_expand_merge_plain(words, ref, sg.g.node_epoch[d], sg.g.edge_src[d],
+                                                 sg.g.edge_dst_local[d], sg.g.edge_dst_epoch[d])
+            assert torch.equal(got[d, :table.words], nx), f"shard {d}"
+            assert torch.equal(sg.g.invalid[d], ref), f"shard {d}"
+            want_count += int(lit)
+        assert not got[:, table.words:].any()
+        assert int(count) == want_count > 0
 
 
 def test_graph_mesh_across_cards_raises(card):

@@ -4,6 +4,7 @@ CPU mesh against a port mesh of 8 CPU shards. The same numpy graphs, epochs
 and seeds go to both packages and to a union-rule BFS oracle. Tolerance:
 exact — masks bit-identical, counts and ids equal. Each case is the port
 counterpart of one in ``tests/test_sharded_wave.py``, run on both packages."""
+import functools
 from collections import deque
 
 import numpy as np
@@ -17,6 +18,7 @@ import stl_fusion_tpu_torch.graph as pgraph
 import stl_fusion_tpu_torch.parallel as ppar
 from stl_fusion_tpu.graph.synthetic import power_law_dag
 from stl_fusion_tpu_torch.ops import wave as tw
+from stl_fusion_tpu_torch.ops.bitops import pack_bits
 
 from test_device_graph import random_dag
 
@@ -100,6 +102,68 @@ def test_sharded_wave_matches_oracle_and_jax(seed, n, jax_exchanges):
         for key, g in graphs.items():
             assert g.run_wave(seeds) == want_count, key
             np.testing.assert_array_equal(g.invalid_mask(), state, err_msg=str(key))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_waves_on(n_dev, seed=21, n=613):
+    """Three waves of the JAX sharded wave on an ``n_dev``-device mesh:
+    (graph state, seed lists, [(count, mask)] per wave)."""
+    rng, src, dst, eep, nep, inv = _state(seed, n)
+    seeds = [rng.choice(n, size=5, replace=False).tolist() for _ in range(3)]
+    g = jpar.ShardedDeviceGraph(src, dst, n, mesh=jpar.graph_mesh(n_dev), edge_dst_epoch=eep,
+                                node_epoch=nep, invalid=inv)
+    out = [(g.run_wave(s), g.invalid_mask()) for s in seeds]
+    return (src, dst, eep, nep, inv), seeds, out
+
+
+@pytest.mark.parametrize("exchange", ["packed", "ring", "bool"])
+@pytest.mark.parametrize("n_dev", [1, 3, 8])
+def test_one_launch_level_matches_jax_sharded_wave(n_dev, exchange):
+    """The port's level, one wave_expand_shards call for all shards (its
+    plain version on the CPU), against the JAX sharded wave on a mesh of
+    the same size, for every exchange: counts and masks after each wave,
+    and one launch-form call per level."""
+    (src, dst, eep, nep, inv), seeds, want = _jax_waves_on(n_dev)
+    g = ppar.ShardedDeviceGraph(src, dst, len(nep), mesh=ppar.graph_mesh(n_dev, device="cpu"),
+                                edge_dst_epoch=eep, node_epoch=nep, invalid=inv,
+                                exchange=exchange)
+    for s, (count, mask) in zip(seeds, want):
+        assert g.run_wave(s) == count
+        np.testing.assert_array_equal(g.invalid_mask(), mask)
+
+
+def test_wave_expand_shards_plain_is_per_shard_merged_levels():
+    """wave_expand_shards on a shared 1-D frontier and on 2-D rows equals a
+    wave_expand_merge_plain per shard; rows are ``width`` words, a multiple
+    of 4, with the padding words zero."""
+    import torch
+
+    n_dev = 3
+    rng, src, dst, eep, nep, inv = _state(4, 300)
+    mesh = ppar.graph_mesh(n_dev, device="cpu")
+    frontier = torch.from_numpy(rng.random(n_dev * 32 * 4) < 0.2)
+    words = pack_bits(frontier)
+    for shared in (True, False):
+        g = ppar.ShardedDeviceGraph(src, dst, 300, mesh=mesh, edge_dst_epoch=eep,
+                                    node_epoch=nep, invalid=inv)
+        ref = [x.clone() for x in g.g.invalid]
+        table = tw.ShardTable(*g.g)
+        assert table.width % 4 == 0 and table.width >= table.words
+        fw = words if shared else torch.stack([words] * n_dev)
+        got, count = tw.wave_expand_shards(fw, table, g.n_global)
+        want = 0
+        for d in range(n_dev):
+            nx, lit = tw.wave_expand_merge_plain(words, ref[d], g.g.node_epoch[d], g.g.edge_src[d],
+                                                 g.g.edge_dst_local[d], g.g.edge_dst_epoch[d])
+            assert torch.equal(got[d, :table.words], nx)
+            assert not got[d, table.words:].any()
+            assert torch.equal(g.g.invalid[d], ref[d])
+            want += int(lit)
+        assert int(count) == want and want > 0
+    with pytest.raises(ValueError, match="cover"):
+        tw.wave_expand_shards(words[:1], table, g.n_global)
+    with pytest.raises(ValueError, match="one row per shard"):
+        tw.wave_expand_shards(torch.stack([words] * 2), table, g.n_global)
 
 
 @pytest.mark.parametrize("pkg", PKGS)

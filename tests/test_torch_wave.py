@@ -135,3 +135,42 @@ def test_wave_expand_plain_matches_one_jax_wave_step(seed):
     p_next, pg = tw.wave_step(torch.from_numpy(frontier), _port_g(state))
     np.testing.assert_array_equal(p_next.numpy(), np.asarray(j_next))
     np.testing.assert_array_equal(_port_mask(pg), np.asarray(jg.invalid))
+
+
+def _merge_case(seed, n_dup, n_live_extra):
+    """A level's inputs with every edge case of the merged kernel: stale
+    epochs and pre-invalid dependents (``_graph``), duplicate edges copied
+    into the padding, a dependent reached by several frontier nodes, a
+    frontier holding invalid nodes, padding edges inside the live prefix,
+    and a live prefix that is not a multiple of 4."""
+    rng, (es, ed, ee, ne, inv) = _graph(seed)
+    e = int((es < N_CAP).sum())
+    dup = rng.choice(e, n_dup, replace=False)
+    es[e:e + n_dup], ed[e:e + n_dup], ee[e:e + n_dup] = es[dup], ed[dup], ee[dup]
+    n_live = e + n_dup + n_live_extra  # the extra slots are padding edges
+    n_live += n_live % 4 == 0  # a ragged tail for the kernel's scalar path
+    frontier = np.zeros(N_CAP + 1, bool)
+    frontier[rng.choice(N, 50, replace=False)] = True
+    frontier[np.nonzero(inv[:N])[0][:3]] = True
+    return frontier, (es, ed, ee, ne, inv), n_live
+
+
+@pytest.mark.parametrize(
+    "seed,n_dup,n_live_extra", [(8, 0, 0), (9, 7, 2), (10, 13, 1), (11, 40, 3)]
+)
+def test_wave_expand_merge_plain_matches_one_jax_wave_step(seed, n_dup, n_live_extra):
+    """The merged level (next frontier, invalid |= next, popcount(next))
+    equals one JAX wave_step, through the plain version and through the
+    public wrapper on CPU tensors, which launches no kernel."""
+    frontier, state, n_live = _merge_case(seed, n_dup, n_live_extra)
+    j_next, jg = jw.wave_step(jnp.asarray(frontier), _jax_g(state))
+    j_next, j_inv = np.asarray(j_next), np.asarray(jg.invalid)
+    for fn in (tw.wave_expand_merge_plain, tw.wave_expand_merge):
+        g = _port_g(state, n_live=n_live)
+        before = tw.launches
+        nxt_w, count = fn(pack_bits(torch.from_numpy(frontier)), g.invalid, g.node_epoch,
+                          *g.live_edges())
+        assert tw.launches == before
+        np.testing.assert_array_equal(unpack_bits(nxt_w, N_CAP + 1).numpy(), j_next)
+        np.testing.assert_array_equal(_port_mask(g), j_inv)
+        assert count.dtype == torch.int64 and int(count) == int(j_next.sum())
