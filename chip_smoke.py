@@ -10,13 +10,15 @@ user calls. Phases, each printing one JSON line:
 1. ``device``   — the card's name, device count, ``nvidia-smi`` name and power
    limit;
 2. ``build``    — ``nvcc`` compiles every kernel (``-Xptxas -v`` registers and
-   spills);
+   spills) and ``g++`` the mirrors' host graph packer;
 3. ``hellocart`` — the HelloCart v1 chain (Product → Cart → Total) on a
    ``FusionHub`` with the port's ``TpuGraphBackend`` on the card: a host-led
    change through ``invalidating()``, ``invalidate_cascade``,
    ``invalidate_cascade_batch`` and one ``invalidate_cascade_batch_sharded``
    burst on an 8-shard mesh on the card, with the watched node applied
-   eagerly, the rest pending, and the recomputed totals right;
+   eagerly, the rest pending, and the recomputed totals right; then
+   ``build_topo_mirror`` and one burst through the lat mirror, and the
+   same burst with the mirror built but ``mirror="off"``: identical;
 4. ``power_law_10m`` — the BASELINE stress graph (``power_law_dag(10M,
    avg_degree=3, seed=7)``) in ``DeviceGraph(device="cuda")`` with 1% of nodes
    epoch-bumped after capture: ``run_waves_union`` from 100,000 seeds,
@@ -31,11 +33,22 @@ user calls. Phases, each printing one JSON line:
    EXACTLY against the same oracle; each wave must make ONE ``wave_expand``
    launch per level for all 8 shards, one ring gather (one CUDA launch) per
    level on the ring, and ``or_popcount`` only for the seed merge;
-6. ``profile`` — ``torch.profiler`` over one more 10M union wave and one
+6. ``mirror_10m`` — ``build_topo_mirror`` on ``power_law_10m``'s graph,
+   then the 100,000-seed union as ONE topo sweep (one ``topo_sweep`` launch
+   per non-empty level, no ``wave_expand``) and the 256 shallow seeds as one
+   lat wave, each equal to the dense wave's result;
+7. ``topo_10m`` — the twin of ``bench.py``'s single-chip leg
+   (``stl_fusion_tpu_torch/bench.py``): 512 packed waves of 100,000 seeds
+   in one sweep at W=16; counts and bits equal to the plain sweep's, lanes
+   0, 31, 32 and 511 equal to the oracle; ``cascading_invalidations_per_sec``,
+   the sweep's device time and idle share, its bound; the lat leg's 96
+   lone waves (p50/p99/max; three checked against the oracle);
+8. ``profile`` — ``torch.profiler`` over one more 10M union wave and one
    sharded ring wave: device time by kernel, device calls per wave, the
    device's idle share, and the level kernel's launches (one per level);
-7. ``kernels``  — every kernel form against its plain PyTorch version on the
-   card, exact: ``or_popcount``; ``wave_expand`` (pure) and
+9. ``kernels``  — every kernel form against its plain PyTorch version on the
+   card, exact: ``or_popcount``; ``topo_sweep`` (the whole topo_10m sweep
+   and its widest level alone); ``wave_expand`` (pure) and
    ``wave_expand_merge`` at the union wave's first and widest levels;
    ``wave_expand_shards`` at the sharded wave's first level; the ring from
    2-D rows (the main path's form) and from a list. Each with its time (CUDA
@@ -44,10 +57,11 @@ user calls. Phases, each printing one JSON line:
    function where there is one (the ring: the concatenation copied into
    all ``n`` rows; ``torch.cat`` alone is recorded beside it).
 
-The main path is two paths, each driven with every kernel's launch count
+The main path is three paths, each driven with every kernel's launch count
 set to 0 just before it and read just after: phases 3-4 (the dense wave)
 must launch ``or_popcount`` and ``wave_expand_merge``, phase 5 (the sharded
-wave) ``or_popcount``, ``wave_expand_shards`` and ``ring_all_gather``. Any
+wave) ``or_popcount``, ``wave_expand_shards`` and ``ring_all_gather``,
+phases 6-7 (the mirror) ``topo_sweep`` and no ``wave_expand``. Any
 failure raises and the script exits non-zero. The last lines are the kernel
 summary (the forms the main path runs), the ``nvidia-smi`` name and power
 limit, and
@@ -181,6 +195,9 @@ def phase_build() -> dict:
     info = _build.build_all()
     for name in _build.KERNELS:
         _build.load(name)
+    for name in _build.HOST_LIBS:  # g++, for the mirrors' graph packer
+        _build.load_host(name)
+        info["host:" + name] = _build.build_info.get("host:" + name, {"cached": True})
     out = {"phase": "build", "seconds": time.perf_counter() - t0, "kernels": info}
     emit(out)
     return out
@@ -303,6 +320,38 @@ async def _hellocart(device) -> dict:
            "sharded mirror lives on the card mesh")
     out["total"] = await totals.total()
     expect(out["total"] == truth(), "total after invalidate_cascade_batch_sharded")
+
+    # the topo and lat mirrors: one burst through the lat mirror, then the
+    # same burst with the mirror built but the graph's mirror="off"
+    graph, runs = backend.graph, {}
+    for route in ("lat", "off"):
+        backend.build_topo_mirror()
+        c_total, fired = await watch_total()
+        nodes = {"apple": await capture(lambda: products.get("apple")),
+                 "alice": await capture(lambda: carts.cart_total("alice")),
+                 "bob": await capture(lambda: carts.cart_total("bob")), "total": c_total}
+        products.price["apple"] += 1.0
+        before = (graph.mirror_bursts, graph.lat_waves)
+        if route == "off":
+            backend._wave_union = lambda seeds: graph.run_waves_union(seeds, mirror="off")
+        try:
+            count = backend.invalidate_cascade_batch([nodes["apple"]])
+        finally:
+            backend.__dict__.pop("_wave_union", None)
+        runs[route] = {"count": count,
+                       "invalidated": sorted(k for k, c in nodes.items() if c.is_invalidated),
+                       "mirror_bursts": graph.mirror_bursts - before[0],
+                       "lat_waves": graph.lat_waves - before[1]}
+        expect(fired == [c_total], f"{route} burst: watched total eager")
+        expect(await totals.total() == truth(), f"total after the {route} burst")
+    expect(runs["lat"]["lat_waves"] == runs["lat"]["mirror_bursts"] == 1,
+           f"the first burst rode the lat mirror: {runs['lat']}")
+    expect(runs["off"]["mirror_bursts"] == 0, f"mirror='off' took the dense path: {runs['off']}")
+    expect(runs["lat"]["count"] == runs["off"]["count"] == 3
+           and runs["lat"]["invalidated"] == runs["off"]["invalidated"],
+           f"the lat and dense bursts differ: {runs}")
+    out["mirror_bursts"] = runs
+    out["mirror_rebuilds"] = graph.mirror_rebuilds
     out.update(nodes=backend.node_count, edges=backend.edge_count, waves=backend.waves_run)
     return out
 
@@ -516,6 +565,200 @@ def phase_sharded(device, card: str, level: dict) -> dict:
     return out
 
 
+def _nonempty_levels(level_starts) -> int:
+    return sum(b > a for a, b in zip(level_starts, level_starts[1:]))
+
+
+def phase_mirror(device, card: str, level: dict) -> dict:
+    """The topo and lat mirrors of ``power_law_10m``'s graph (1% of nodes
+    epoch-bumped): ``build_topo_mirror``, then from a cleared state the
+    100,000-seed union as one topo sweep and the 256 shallow seeds as one
+    lat wave, each EXACTLY the dense wave's result (the same oracle). The
+    sweep must make one ``topo_sweep`` launch per non-empty level per pass
+    and no ``wave_expand`` launch."""
+    import numpy as np
+    import torch
+
+    from stl_fusion_tpu_torch.ops import topo_wave as tpw
+    from stl_fusion_tpu_torch.ops import wave as wave_mod
+
+    g, n = level["graph"], level["n"]
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    g.clear_invalid()
+    t0 = time.perf_counter()
+    m = g.build_topo_mirror()
+    sync(device)
+    per_sweep = _nonempty_levels(m["level_starts"])
+    out = {"phase": "mirror_10m", "card": card, "nodes": n,
+           "build_topo_mirror_s": time.perf_counter() - t0, "topo_rows": m["n_tot"] + 1,
+           "topo_k": int(m["garrays"].in_src.shape[1]), "levels": m["levels"],
+           "launches_per_sweep": per_sweep, "lat_rows": m["lat"]["n_tot"] + 1,
+           "lat_k": m["lat"]["k"], "waves": {}}
+
+    def burst(name, seeds, want, route):
+        want_ids, want_count, _ = want
+        rec = {"seeds": len(seeds), "route": route}
+        for run in ("first", "repeat"):
+            g.clear_invalid()
+            before = (g.mirror_bursts, g.lat_waves, tpw.launches, wave_mod.launches)
+            t = time.perf_counter()
+            count, ids = g.run_waves_union([seeds.tolist()])
+            sync(device)
+            rec[f"wave_ms_{run}"] = (time.perf_counter() - t) * 1e3
+            got = (g.mirror_bursts - before[0], g.lat_waves - before[1],
+                   tpw.launches - before[2], wave_mod.launches - before[3])
+            want_routes = (1, 1, 0, 0) if route == "lat" else (1, 0, per_sweep, 0)
+            if got != want_routes:
+                raise AssertionError(f"{name}: (mirror bursts, lat waves, topo_sweep launches, "
+                                     f"wave_expand launches) = {got}, not {want_routes}")
+            if count != want_count:
+                raise AssertionError(f"{name}: count {count} != the dense wave's {want_count}")
+            if not np.array_equal(np.sort(ids), want_ids):
+                raise AssertionError(f"{name}: newly ids differ from the dense wave's")
+            if not np.array_equal(np.nonzero(g.invalid_mask())[0], want_ids):
+                raise AssertionError(f"{name}: device invalid mask differs from the dense wave's")
+        rec.update(newly=count, invalidations_per_s_repeat=count / (rec["wave_ms_repeat"] / 1e3))
+        return rec
+
+    out["waves"]["union_topo"] = burst("mirror run_waves_union (100,000 seeds)", level["seeds"],
+                                       level["want_union"], "topo")
+    out["waves"]["union_lat"] = burst("mirror run_waves_union (256 shallow seeds)",
+                                      level["shallow"], level["want_shallow"], "lat")
+    # where each burst's time goes: torch.profiler from a cleared state
+    for name, seeds in (("union_topo", level["seeds"]), ("union_lat", level["shallow"])):
+        seed_list = [seeds.tolist()]
+        g.clear_invalid()
+        wall_ms, by_name, calls, seen = profile_checked(
+            device, lambda: g.run_waves_union(seed_list),
+            {"topo_sweep": per_sweep if name == "union_topo" else 0}, f"mirror {name}")
+        sweep_ms = seen["topo_sweep"][0] * per_sweep if name == "union_topo" else 0.0
+        dev_ms = sum(v["ms"] for v in by_name.values())
+        out["waves"][name].update(
+            profile_wall_ms=wall_ms, device_ms=dev_ms, idle_share=1 - dev_ms / wall_ms,
+            device_calls=calls, topo_sweep_device_ms=sweep_ms,
+            topo_sweep_profiled_launches=seen["topo_sweep"][1],
+            top_kernels=dict(sorted(by_name.items(), key=lambda kv: -kv[1]["ms"])[:6]))
+    if device.type == "cuda":
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    g.clear_invalid()
+    emit(out)
+    return out
+
+
+def phase_topo_10m(device, card: str, n: int = N_NODES, n_seeds: int = N_UNION_SEEDS) -> dict:
+    """The twin of ``bench.py``'s single-chip leg (``stl_fusion_tpu_torch/
+    bench.py``, its defaults: 10M nodes, 512 packed waves of 100,000 seeds
+    at W=16, the lat leg's 96 lone waves of 256 shallow seeds). Exactness:
+    the per-word counts and bits equal the plain sweep's on the card, lanes
+    0, 31, 32 and 511 equal the oracle, and three lat samples (counts; the
+    last one's ids too) equal the oracle. Reports
+    ``cascading_invalidations_per_sec``, the sweep's launches, device time
+    and idle share (``torch.profiler``), its bound and peak memory."""
+    import numpy as np
+    import torch
+
+    from stl_fusion_tpu_torch import bench
+    from stl_fusion_tpu_torch.ops import topo_wave as tpw
+    from stl_fusion_tpu_torch.ops.ell_wave import advance_epoch, invalid_mask
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    leg = bench.build_topo_leg(n, seeds_per_wave=n_seeds, device=device)
+    setup_s = time.perf_counter() - t0
+    graph, n = leg["graph"], leg["n_nodes"]
+    per_sweep = _nonempty_levels(graph.level_starts)
+    launches0 = tpw.launches
+    sweep = bench.run_topo_leg(leg)
+    runs = (1 + len(sweep["sweep_s"])) * leg["n_batches"]
+    if tpw.launches - launches0 != runs * per_sweep:
+        raise AssertionError(f"topo_10m: {tpw.launches - launches0} topo_sweep launches in "
+                             f"{runs} sweeps, not {per_sweep} each")
+
+    # the kernel's last sweep against the plain version on the same inputs
+    state, ga, seeds = leg["state"], leg["wave32"].garrays, leg["seed_bits"][-1]
+    plain = tpw.TopoState(state.node_epoch, torch.zeros_like(state.invalid_bits))
+    _, plain_counts = tpw.topo_sweep_plain(graph.level_starts, ga, seeds, plain)
+    if not (np.array_equal(plain_counts.cpu().numpy(), sweep["counts"][-1])
+            and torch.equal(plain.invalid_bits, state.invalid_bits)):
+        raise AssertionError("topo_10m: the sweep's counts or bits differ from the plain sweep's")
+    del plain
+
+    oracle = LevelBfsOracle(leg["src"], leg["dst"], np.zeros(len(leg["src"]), np.int32),
+                            np.zeros(n, np.int32), n)
+    lanes = {}
+    for lane in (0, 31, 32, 511):
+        w, b = divmod(lane, 32)
+        rows = torch.nonzero(((state.invalid_bits[:, w] >> b) & 1).bool() & ga.is_real)
+        got = np.sort(graph.perm[rows.flatten().cpu().numpy()])
+        want_ids, want_count, depth = oracle.wave(leg["seed_lists"][-1][lane])
+        if not np.array_equal(got, want_ids):
+            raise AssertionError(f"topo_10m: lane {lane} differs from the oracle")
+        lanes[lane] = {"newly": want_count, "oracle_levels": depth}
+
+    # where one run of the batches' time goes
+    bench.run_batches(leg)
+    wall_ms, by_name, calls, seen = profile_checked(
+        device, lambda: bench.run_batches(leg), {"topo_sweep": per_sweep * leg["n_batches"]},
+        "topo_10m")
+    per_launch_ms, profiled = seen["topo_sweep"]
+    dev_ms = per_launch_ms * per_sweep * leg["n_batches"]
+
+    lat = bench.build_lat_leg(leg)
+    lat_res = bench.run_lat_leg(lat)
+    for i in (0, len(lat_res["counts"]) // 2, len(lat_res["counts"]) - 1):
+        want_ids, want_count, _ = oracle.wave(lat["seeds"][i + 1])  # seeds[0]: the warm-up
+        if lat_res["counts"][i] != want_count:
+            raise AssertionError(f"topo_10m: lat sample {i} counts {lat_res['counts'][i]}, "
+                                 f"the oracle {want_count}")
+    if not np.array_equal(np.nonzero(invalid_mask(lat["state"])[:n])[0], want_ids):
+        raise AssertionError("topo_10m: the last lat sample's ids differ from the oracle")
+    # one more lone wave under torch.profiler: device time, calls, idle share
+    lat_state = advance_epoch(lat["state"])
+    lat_wall, lat_by, lat_calls = profile_device(
+        device, lambda: lat["wave"](lat["seeds_dev"][1], lat_state))
+    lat_dev = sum(v["ms"] for v in lat_by.values())
+    lat_profile = {"wall_ms": lat_wall, "device_ms": lat_dev, "device_calls": lat_calls,
+                   "idle_share": 1 - lat_dev / lat_wall,
+                   "top_kernels": dict(sorted(lat_by.items(), key=lambda kv: -kv[1]["ms"])[:6])}
+
+    rec = bench.record(leg, sweep, lat_res)
+    n_bytes = sweep_bytes(graph, leg["words"], start_level=1, seeded=True)
+    b_ms, b_by = bound_ms(n_bytes, 0)
+    ms = np.asarray(lat_res["samples_ms"])
+    out = {"phase": "topo_10m", "card": card, **rec, "setup_s": setup_s,
+           "sweep_ms_median": sweep["elapsed_s"] / leg["n_batches"] * 1e3,
+           "launches_per_sweep": per_sweep, "profile_wall_ms": wall_ms,
+           "profiled_launches": profiled,
+           "sweep_device_ms": dev_ms / leg["n_batches"], "device_ms": sum(
+               v["ms"] for v in by_name.values()), "device_calls": calls,
+           "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": n_bytes,
+           "topo_rows": graph.n_tot + 1, "lanes": lanes,
+           "lat_rows": lat["ell"].n_tot + 1, "wave_ms_min": float(ms.min()),
+           "lat_profile": lat_profile}
+    out["idle_share"] = 1 - out["device_ms"] / wall_ms
+    if device.type == "cuda":
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    emit(out)
+    out["leg"] = leg
+    return out
+
+
+def sweep_bytes(graph, words: int, start_level: int, seeded: bool, levels=None) -> int:
+    """Bytes a sweep (or the ``levels`` range of one) must move: each
+    gathered row's in_src and edge_epoch rows and epoch, each row's
+    is_real, words read and written (and seed words), and each live
+    in-slot's gathered row of W words."""
+    starts = graph.level_starts
+    lo, hi = (start_level, len(starts) - 1) if levels is None else levels
+    a, b = starts[lo], starts[hi]
+    k = graph.in_src.shape[1]
+    live = int((graph.in_src[a:b] != graph.n_tot).sum())
+    rows = graph.n_tot + 1 if levels is None else b - a
+    return (b - a) * (8 * k + 4) + rows * ((12 if seeded else 8) * words + 1) + live * 4 * words
+
+
 def profile_device(device, fn) -> tuple:
     """``fn()`` under ``torch.profiler``: (wall ms, device time by kernel
     name as {name: {"ms", "calls"}}, device calls: kernels, copies and
@@ -550,6 +793,25 @@ def kernel_calls(by_name: dict, symbol: str) -> tuple:
     return sum(v["ms"] for v in hits), sum(v["calls"] for v in hits)
 
 
+def profile_checked(device, fn, want: dict, what: str) -> tuple:
+    """``profile_device(fn)`` that must show some launches of each kernel
+    form and at most ``want[form]``, the launches the wrappers counted: the
+    trace drops some kernel records once a process has run several
+    profiler sessions (seen on the card: 80-81 of a sweep's 85 launches,
+    17 of 20 ``or_popcount`` launches). Returns (wall ms, by_name, device
+    calls, {form: (device ms per launch over the launches shown, launches
+    shown)})."""
+    wall_ms, by_name, calls = profile_device(device, fn)
+    seen = {}
+    for form, n in want.items():
+        ms, got = kernel_calls(by_name, SYMBOLS[form])
+        if not (got == n == 0 or 0 < got <= n):
+            raise AssertionError(f"{what}: the profile shows {got} launches of {form}, "
+                                 f"the wrappers made {n}")
+        seen[form] = (ms / got if got else 0.0, got)
+    return wall_ms, by_name, calls, seen
+
+
 #: each kernel form's symbol in the profiler's kernel names
 SYMBOLS = {
     "or_popcount": "or_popcount_kernel",
@@ -557,6 +819,7 @@ SYMBOLS = {
     "wave_expand_merge": "wave_expand_kernel<true,false>",
     "wave_expand_shards": "wave_expand_kernel<true,true>",
     "ring_all_gather": "ring_gather_kernel",
+    "topo_sweep": "topo_sweep_kernel",
 }
 
 
@@ -565,19 +828,16 @@ def phase_profile(device, wave: str, run, reset, levels: int, exchange=None) -> 
     wave as the main path's, from a cleared state after a warm-up; device
     time by kernel, the device calls per wave and the device's idle share.
     ``levels`` is the wave's wave_expand calls (productive levels + 1): the
-    profile must show exactly that many launches of the level's kernel,
-    and of the ring kernel on a ring wave."""
+    profile may show no more launches of the level's kernel (and of the
+    ring kernel on a ring wave), and shows how many it caught."""
     reset()
     run()  # warm-up
     reset()
-    wall_ms, by_name, calls = profile_device(device, run)
-    device_ms = sum(v["ms"] for v in by_name.values())
     form = "wave_expand_merge" if exchange is None else "wave_expand_shards"
-    seen = {form: kernel_calls(by_name, SYMBOLS[form])[1]}
-    if exchange == "ring":
-        seen["ring_all_gather"] = kernel_calls(by_name, SYMBOLS["ring_all_gather"])[1]
-    if any(v != levels for v in seen.values()):
-        raise AssertionError(f"{wave}: the profile shows {seen} launches, not {levels} each")
+    want = {form: levels, **({"ring_all_gather": levels} if exchange == "ring" else {})}
+    wall_ms, by_name, calls, seen = profile_checked(device, run, want, wave)
+    seen = {f: n for f, (_, n) in seen.items()}
+    device_ms = sum(v["ms"] for v in by_name.values())
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1]["ms"])[:12])
     out = {"phase": "profile", "wave": wave, "wall_ms": wall_ms, "device_ms": device_ms,
            "idle_share": 1 - device_ms / wall_ms, "device_calls": calls,
@@ -586,7 +846,7 @@ def phase_profile(device, wave: str, run, reset, levels: int, exchange=None) -> 
     return out
 
 
-def phase_kernels(device, main_launches: dict, level: dict, sg, card: str) -> dict:
+def phase_kernels(device, main_launches: dict, level: dict, sg, topo: dict, card: str) -> dict:
     """Every kernel form against its plain version on the card at the main
     path's shapes, exact, with its time (CUDA events), its device time
     (``torch.profiler``), the bound for the same work and a PyTorch call
@@ -770,19 +1030,75 @@ def phase_kernels(device, main_launches: dict, level: dict, sg, card: str) -> di
             shape=f"{n_sh} shards x int32[{c}] ({given})",
             cat_ms=cat_ms, main_path=form == "ring_all_gather")
 
+    # topo_sweep: the whole sweep of topo_10m (10M nodes, W=16, k=4, 512
+    # packed waves of 100,000 seeds) from a zeroed state, and its widest level
+    # alone (rows of levels >= 1), launched through the C entry with no tail
+    import ctypes
+
+    from stl_fusion_tpu_torch.ops import _build
+    from stl_fusion_tpu_torch.ops import topo_wave as tpw
+
+    leg = topo["leg"]
+    graph, tga, seeds, st = leg["graph"], leg["wave32"].garrays, leg["seed_bits"][-1], leg["state"]
+    starts, w, inv = graph.level_starts, leg["words"], st.invalid_bits
+    src_topo = "stl_fusion_tpu_torch/csrc/topo_sweep.cu"
+    rep_topo = "stl_fusion_tpu/ops/topo_wave.py:257 (XLA _topo_sweep_impl; no Pallas kernel)"
+    zero = torch.zeros_like(inv)
+    plain_st = tpw.TopoState(st.node_epoch, torch.zeros_like(inv))
+    call, restore = restored([(inv, zero)], lambda: tpw.topo_sweep(starts, tga, seeds, st))
+    plain_call, _ = restored([(plain_st.invalid_bits, zero)],
+                             lambda: tpw.topo_sweep_plain(starts, tga, seeds, plain_st))
+    got, want = call()[1], plain_call()[1]
+    e = check("topo_sweep", [got], [want])
+    if not torch.equal(inv, plain_st.invalid_bits):
+        raise AssertionError("topo_sweep: bits differ from its plain version")
+    ms, plain_ms, with_ms, restore_ms = timed_pair(call, restore, plain_call, plain_reps=3)
+    row("topo_sweep", "topo_sweep", src_topo, rep_topo, e, ms, plain_ms,
+        sweep_bytes(graph, w, 1, True), 0, None, call=call, per_call=_nonempty_levels(starts),
+        shape=(f"{graph.n_tot + 1} rows x int32[{w}], k={graph.k}, "
+               f"{len(starts) - 1} levels, 512 packed waves"),
+        ms_with_restore=with_ms, restore_ms=restore_ms, newly=int(got.long().sum()))
+
+    wl = max(range(1, len(starts) - 1), key=lambda lv: starts[lv + 1] - starts[lv])
+    a, b = starts[wl], starts[wl + 1]
+    lvl = np.asarray([a, b], np.int64)
+    inv_k = inv.clone()
+    inv_k[a:b] = 0
+    inv_p = inv_k.clone()
+    level_counts, made = torch.zeros(w, dtype=torch.int32, device=device), ctypes.c_int(0)
+
+    def level_call():
+        _build.launch("topo_sweep", "topo_sweep_launch", tga.in_src.data_ptr(),
+                      tga.edge_epoch.data_ptr(), st.node_epoch.data_ptr(), tga.is_real.data_ptr(),
+                      None, inv_k.data_ptr(), level_counts.data_ptr(), lvl.ctypes.data, 1, 0,
+                      graph.k, w, graph.n_tot, graph.n_tot + 1, int(w % 4 == 0),
+                      ctypes.addressof(made))
+
+    def level_plain():
+        tpw._plain_level(inv_p, tga, st.node_epoch, a, b)
+
+    level_call()
+    level_plain()
+    if made.value != 1 or not torch.equal(inv_k, inv_p):
+        raise AssertionError("topo_sweep (widest level) differs from its plain version")
+    row("topo_sweep (widest level)", "topo_sweep", src_topo, rep_topo, 0,
+        time_ms(level_call, device), time_ms(level_plain, device, reps=5),
+        sweep_bytes(graph, w, 1, False, levels=(wl, wl + 1)), 0, None, call=level_call,
+        main_path=False,
+        shape=f"level {wl}: rows [{a}, {b}) x int32[{w}], k={graph.k}")
+
     # device time alone (torch.profiler): tells launch- or host-bound calls
     # from slow kernels, since CUDA events over back-to-back calls also time
     # the host's enqueue when it is the slower side; each call is exactly
     # one launch of its form's kernel
     reps = 20
     for r in rows.values():
-        call = r.pop("call")
-        symbol = SYMBOLS[r["form"].split(".")[0]]
-        _, by_name, _ = profile_device(device, lambda: [call() for _ in range(reps)])
-        dev_ms, calls = kernel_calls(by_name, symbol)
-        if calls != reps:
-            raise AssertionError(f"{r['name']}: {calls} launches of {symbol} in {reps} calls")
-        r["device_ms"] = dev_ms / reps
+        call, per_call = r.pop("call"), r.pop("per_call", 1)
+        form = r["form"].split(".")[0]
+        _, _, _, seen = profile_checked(device, lambda: [call() for _ in range(reps)],
+                                        {form: reps * per_call}, r["name"])
+        r["device_ms"] = seen[form][0] * per_call
+        r["profiled_launches"] = seen[form][1]
     emit({"phase": "kernels", "card": card, "kernels": list(rows.values())})
     return rows
 
@@ -795,6 +1111,7 @@ def main() -> int:
         return 2
     from stl_fusion_tpu_torch.ops import or_popcount as opc_mod
     from stl_fusion_tpu_torch.ops import ring_all_gather as rag_mod
+    from stl_fusion_tpu_torch.ops import topo_wave as tpw_mod
     from stl_fusion_tpu_torch.ops import wave as wave_mod
 
     device = torch.device("cuda")
@@ -806,13 +1123,15 @@ def main() -> int:
                 "wave_expand": wave_mod.form_launches["pure"],
                 "wave_expand_merge": wave_mod.form_launches["merge"],
                 "wave_expand_shards": wave_mod.form_launches["shards"],
-                "ring_all_gather": rag_mod.launches, "ring_cuda_launches": rag_mod.cuda_launches}
+                "ring_all_gather": rag_mod.launches, "ring_cuda_launches": rag_mod.cuda_launches,
+                "topo_sweep": tpw_mod.launches}
 
-    def drive(path, run, kernels):
+    def drive(path, run, kernels, absent=()):
         """One path of the main path: counts to 0 just before, read just
-        after; each named kernel form must have launched, and the ring made
-        one CUDA launch per gather."""
+        after; each named kernel form must have launched, each ``absent``
+        one must not have, and the ring made one CUDA launch per gather."""
         opc_mod.launches = wave_mod.launches = rag_mod.launches = rag_mod.cuda_launches = 0
+        tpw_mod.launches = 0
         wave_mod.form_launches.update(dict.fromkeys(wave_mod.form_launches, 0))
         res = run()
         got = counts()
@@ -820,6 +1139,9 @@ def main() -> int:
         for name in kernels:
             if got[name] <= 0:
                 raise AssertionError(f"{name} was not launched on the {path} path")
+        for name in absent:
+            if got[name] != 0:
+                raise AssertionError(f"{name} was launched {got[name]} times on the {path} path")
         if got["ring_cuda_launches"] != got["ring_all_gather"]:
             raise AssertionError(f"the ring made {got['ring_cuda_launches']} CUDA launches in "
                                  f"{got['ring_all_gather']} gathers on the {path} path")
@@ -830,16 +1152,19 @@ def main() -> int:
                       ("or_popcount", "wave_expand_merge"))
     sh, sharded = drive("sharded", lambda: phase_sharded(device, dev["nvidia_smi"], pl["level"]),
                         ("or_popcount", "wave_expand_shards", "ring_all_gather"))
-    main_launches = {name: dense[name] + sharded[name] for name in dense}
+    topo, mirror = drive("mirror", lambda: (phase_mirror(device, dev["nvidia_smi"], pl["level"]),
+                                            phase_topo_10m(device, dev["nvidia_smi"]))[1],
+                         ("topo_sweep",), absent=("wave_expand.all_forms",))
+    main_launches = {name: dense[name] + sharded[name] + mirror[name] for name in dense}
     level = pl["level"]
     g, seeds = level["graph"], level["seeds"].tolist()
     calls = level["want_union"][2] + 1  # wave_expand calls per union wave
-    phase_profile(device, "run_waves_union", lambda: g.run_waves_union([seeds]),
+    phase_profile(device, "run_waves_union", lambda: g.run_waves_union([seeds], mirror="off"),
                   g.clear_invalid, calls)
     sg = sh.pop("ring_graph")
     phase_profile(device, "sharded run_wave (ring)", lambda: sg.run_wave(seeds),
                   sg.clear_invalid, calls, exchange="ring")
-    kernels = phase_kernels(device, main_launches, level, sg, dev["nvidia_smi"])
+    kernels = phase_kernels(device, main_launches, level, sg, topo, dev["nvidia_smi"])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in kernels.values()

@@ -1,9 +1,11 @@
 """stl_fusion_tpu_torch — the PyTorch/CUDA port of ``stl_fusion_tpu``.
 
-The first slice carries the cascading-invalidation wave end to end on an
-NVIDIA H100: the computed-graph runtime (``core``), the device graph mirror
-and its backend (``graph``), and the dense bit-packed BFS wave (``ops``)
-with two hand-written Hopper kernels (``csrc/``). Module names and layout
+It carries the cascading-invalidation wave end to end on an NVIDIA H100:
+the computed-graph runtime (``core``), the device graph mirror, its topo
+and lat mirrors and its backend (``graph``), the dense bit-packed BFS wave,
+the topo sweep and the lone-wave lat programs (``ops``), the one-card mesh
+(``parallel``) and the twin of ``bench.py``'s single-chip leg (``bench``),
+with hand-written Hopper kernels (``csrc/``). Module names and layout
 follow the JAX package so each counterpart is easy to find.
 
 Entry points run on the CUDA device unless the caller passes

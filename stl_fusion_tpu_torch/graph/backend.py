@@ -24,7 +24,8 @@ the previous version, and on device the new epoch's edges never matched.
 
 The sharded mirror (``to_sharded``, ``sharded_mirror``,
 ``invalidate_cascade_batch_sharded``) runs union bursts on a mesh of logical
-shards (``parallel/``). Row blocks (columnar tables), lanes, the packed and
+shards (``parallel/``). ``build_topo_mirror`` builds the device graph's topo
+and lat mirrors, which ``invalidate_cascade_batch`` then rides. Row blocks (columnar tables), lanes, the packed and
 routed mesh mirrors, super-rounds and the watchdog are later slices of the
 port and raise ``NotImplementedError``; the row-block checks on the apply
 path stay, as no-ops while no block is bound.
@@ -458,11 +459,17 @@ class TpuGraphBackend:
     def refresh_block_on_device(self, *args, **kwargs):
         _not_ported("refresh_block_on_device", "A.3 (columnar memo table)")
 
-    def build_topo_mirror(self, *args, **kwargs):
-        _not_ported("build_topo_mirror", "A.4 (topo and lat mirrors)")
+    def build_topo_mirror(self, k: int = 4, cap: int = 65536) -> dict:
+        """Build/refresh the topo and lat mirrors of the live graph: while
+        the live edge set stays the same, ``invalidate_cascade_batch``
+        bursts ride them (a lone wave on the lat mirror, a larger burst as
+        one depth-free sweep) instead of a level-by-level BFS. Any live-edge
+        change routes bursts back to the dense path until this runs again."""
+        self.flush()
+        return self.graph.build_topo_mirror(k=k, cap=cap)
 
     def invalidate_cascade_batch_lanes(self, *args, **kwargs):
-        _not_ported("invalidate_cascade_batch_lanes", "A.4 (topo and lat mirrors)")
+        _not_ported("invalidate_cascade_batch_lanes", "A.4 (mirror lane bursts)")
 
     def enable_super_rounds(self, *args, **kwargs):
         _not_ported("enable_super_rounds", "A.5 (resident live loop)")

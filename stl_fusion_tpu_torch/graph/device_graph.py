@@ -12,12 +12,22 @@ of id batches (it only limited XLA recompiles). Edges are append-only with
 tombstoning by epoch until :meth:`DeviceGraph.compact`.
 
 The invalid state lives on the device as packed int32 words (node ``i`` is
-bit ``i & 31`` of word ``i >> 5``) and on the host as a bool mask. The topo,
-lat and lane mirrors are later slices of the port: with none built,
-``run_waves_union(mirror="auto")`` takes the dense path, as JAX does.
+bit ``i & 31`` of word ``i >> 5``) and on the host as a bool mask.
+
+The topo and lat mirrors (:meth:`DeviceGraph.build_topo_mirror`): once built
+and still matching the live edge set, ``run_waves_union(mirror="auto")``
+sends a burst of ≤ ``LAT_SEED_MAX`` seeds to the lat mirror's O(closure)
+lone wave (``ops/ell_wave.py``) and every other burst, or a lat overflow, to
+one depth-free topo sweep (``ops/topo_wave.py``). The port keeps no patch
+log: any structural change that alters the live edge set makes the mirror
+stale (the fingerprint check of :func:`check_structure_cache`), and bursts
+take the dense path until the mirror is built again — the same answers the
+JAX package gets by patching. The patch path, the async rebuild, the disk
+cache, adaptive passes and the lane paths are later slices (ROADMAP A.4/A.5).
 """
 from __future__ import annotations
 
+import hashlib
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -25,6 +35,14 @@ import torch
 
 from ..device import resolve_device
 from ..ops.bitops import ids_to_word_masks, pack_mask_host, unpack_words_host
+from ..ops.ell_wave import build_ell, ell_live_epoch_init, ell_live_union_step, widen_ell
+from ..ops.topo_wave import (
+    build_topo_graph,
+    run_topo_sweep_passes,
+    topo_graph_arrays,
+    topo_mirror_finish_step,
+    topo_mirror_gate_step,
+)
 from ..ops.wave import (
     GraphArrays,
     run_wave,
@@ -37,7 +55,7 @@ from ..ops.wave import (
 
 __all__ = ["DeviceGraph", "check_structure_cache"]
 
-_MIRROR_SLICE = "ROADMAP A.4/A.5 (topo and lat mirrors, resident live loop)"
+_MIRROR_SLICE = "ROADMAP A.4/A.5 (mirror patch path, async rebuild, lanes; resident live loop)"
 
 
 def _round_up_pow2(x: int) -> int:
@@ -86,6 +104,15 @@ class DeviceGraph:
         self._dirty = True
         self._init_versions()
 
+    LAT_SEED_MAX = 256  # ≤ this many union seeds route via the lat mirror
+    LAT_K = 4  # lat out-ELL build width (virtual trees bound fan-out)
+    LAT_LCAP = 512
+    LAT_CAP = 8192
+    # guaranteed-free slots per mirror row (topo in-rows and lat out-rows), as
+    # in the JAX package: the tables keep its shapes, which its patch path (a
+    # later slice) splices new edges into
+    PATCH_SLACK = 2
+
     def _init_versions(self) -> None:
         # bumped on every structural mutation: a structure cache remembers
         # the version it was last validated (or missed) at, so it pays the
@@ -95,6 +122,10 @@ class DeviceGraph:
         # something, marks, clears, epoch bumps): the sharded live bridge
         # reads it to know whether its resident mesh copy is still current
         self.invalid_version = 0
+        self._topo_mirror: Optional[dict] = None  # see build_topo_mirror
+        self.mirror_rebuilds = 0  # topo mirror builds
+        self.mirror_bursts = 0  # bursts served by a mirror (topo or lat)
+        self.lat_waves = 0  # unions served by the lat mirror
 
     @classmethod
     def from_numpy_state(cls, state: dict, device=None) -> "DeviceGraph":
@@ -333,18 +364,31 @@ class DeviceGraph:
         return counts.numpy().astype(np.int64), np.nonzero(newly)[0].astype(np.int32)
 
     def run_waves_union(self, seed_id_lists: Sequence[Sequence[int]], mirror: str = "auto"):
-        """Union cascade for a burst of seed waves: ONE BFS expansion from
-        all seeds together. Returns (total newly count, union newly ids).
+        """Union cascade for a burst of seed waves: ONE expansion from all
+        seeds together. Returns (total newly count, union newly ids).
 
-        ``mirror``: "auto" would ride a topo mirror when one is built; the
-        mirrors are a later slice, so both "auto" and "off" take the dense
-        path."""
+        ``mirror``: "auto" rides the topo mirror when one was built with
+        :meth:`build_topo_mirror` and the live edge set still matches it: a
+        burst of at most ``LAT_SEED_MAX`` seeds runs the lat mirror's lone
+        wave (ids come back ascending), any other burst — or a lat overflow —
+        one depth-free topo sweep (ids in topo-row order); "off" forces the
+        dense BFS path."""
         if mirror not in ("auto", "off"):
             raise ValueError(f"mirror must be 'auto' or 'off', got {mirror!r}")
+        flat = [np.asarray(s, dtype=np.int64).reshape(-1) for s in seed_id_lists]
+        flat = np.concatenate(flat) if flat else np.empty(0, np.int64)
+        if mirror == "auto" and self._mirror_valid():
+            m = self._topo_mirror
+            # out-of-contract seed ids (unallocated slots) only the dense
+            # path can represent: those bursts fall through to it
+            if not len(flat) or (flat.min() >= 0 and flat.max() < m["n_nodes"]):
+                if 0 < len(flat) <= self.LAT_SEED_MAX:
+                    res = self._run_lat_union(m["lat"], flat)
+                    if res is not None:
+                        return res
+                return self._run_mirror_union(flat)
         g = self.device_arrays()
-        flat = [np.asarray(s, dtype=np.int32).reshape(-1) for s in seed_id_lists]
-        flat = np.concatenate(flat) if flat else np.empty(0, np.int32)
-        self._g, count, newly_w = run_waves_union_packed(self._upload(flat), g)
+        self._g, count, newly_w = run_waves_union_packed(self._upload(flat.astype(np.int32)), g)
         newly = unpack_words_host(newly_w.cpu().numpy(), self.n_cap + 1)  # 1 bit/node
         if newly.any():  # a no-op wave leaves the version alone
             self.invalid_version += 1
@@ -367,10 +411,145 @@ class DeviceGraph:
         self.invalid_version += 1
         self._h_invalid = unpack_words_host(self._g.invalid.cpu().numpy(), self.n_cap + 1)
 
-    # ------------------------------------------------------------------ mirrors (later slices)
-    def build_topo_mirror(self, *args, **kwargs):
-        _not_ported("build_topo_mirror")
+    # ------------------------------------------------------------------ topo and lat mirrors
+    def _live_edge_fingerprint(self):
+        """(live src, live dst, fingerprint) of the CURRENT live edge set
+        (epoch-matched edges only). The fingerprint covers each live edge's
+        captured epoch too, which the lat mirror's slots carry: a recompute
+        that recaptures the same edges at new epochs changes it, as does any
+        append of a live edge, epoch bump that kills an in-edge, or node
+        allocation; ``compact`` (dead edges only) does not. (JAX hashes the
+        ids alone and keeps the lat slots current through its patch log.)"""
+        m = self.n_edges
+        live = self._h_node_epoch[self._h_edge_dst[:m]] == self._h_edge_dst_epoch[:m]
+        src = self._h_edge_src[:m][live]
+        dst = self._h_edge_dst[:m][live]
+        h = hashlib.blake2b(digest_size=16)
+        h.update(np.int64(self.n_nodes).tobytes())
+        h.update(src.tobytes())
+        h.update(dst.tobytes())
+        h.update(self._h_edge_dst_epoch[:m][live].tobytes())
+        return src, dst, h.digest()
 
+    def _mirror_valid(self) -> bool:
+        """Is the built mirror usable RIGHT NOW? O(1) at a structure version
+        already validated (or known stale); otherwise one fingerprint check
+        per structural change. A stale mirror stays stale until
+        :meth:`build_topo_mirror` runs again (no patch log in the port)."""
+        m = self._topo_mirror
+        if m is None:
+            return False
+        return check_structure_cache(
+            m, self._struct_version, lambda: self._live_edge_fingerprint()[2]
+        )
+
+    def build_topo_mirror(self, k: int = 4, cap: int = 65536, force: bool = False) -> dict:
+        """Build (or refresh) the topo mirror of the LIVE edge set: the
+        level-ordered in-ELL (``ops/topo_wave.py``, ``k`` in-slots plus
+        ``PATCH_SLACK``) that runs a whole burst in ONE depth-free sweep, and
+        the lat mirror (the out-ELL of ``ops/ell_wave.py``, ``LAT_K`` plus
+        ``PATCH_SLACK``) for lone waves. Synchronous; rebuilt only when the
+        live-edge fingerprint changed (or ``force``). Bursts read and write
+        the dense device invalid words directly, so the states never
+        diverge; epoch checks inside the mirror are unneeded because it holds
+        exactly the live edges."""
+        cached = self._topo_mirror
+        same = cached is not None and cached["cap"] == cap and cached["k"] == k
+        if not force and same and self._mirror_valid():
+            return cached
+        src, dst, fp = self._live_edge_fingerprint()
+        if not force and same and cached["fp"] == fp:
+            cached["validated_at"] = self._struct_version
+            cached.pop("missed_at", None)
+            return cached
+        topo = build_topo_graph(src, dst, self.n_nodes, k=k, slack=self.PATCH_SLACK)
+        lat = widen_ell(build_ell(src, dst, self.n_nodes, k=self.LAT_K), self.PATCH_SLACK)
+        return self._install_topo_mirror(topo, lat, k, cap, fp)
+
+    def _install_topo_mirror(self, topo, lat, k: int, cap: int, fp) -> dict:
+        """Upload a built ``TopoGraph`` and its lat ``EllGraph`` as the
+        active mirror, valid at the current structure version."""
+        self.mirror_rebuilds += 1
+        n_tot = topo.n_tot
+        node_epoch0 = torch.zeros(n_tot + 1, dtype=torch.int32, device=self.device)
+        node_epoch0[n_tot] = -2
+        self._topo_mirror = {
+            "fp": fp,
+            "cap": cap,
+            "k": k,
+            "validated_at": self._struct_version,
+            "n_nodes": self.n_nodes,
+            "n_tot": n_tot,
+            "inv_perm": topo.inv_perm,
+            "garrays": topo_graph_arrays(topo, self.device),
+            "node_epoch0": node_epoch0,
+            # original id per topo row, clipped into the dense arrays (virtual
+            # rows would index past n_cap; is_real masks them)
+            "perm_clipped": self._upload(np.clip(topo.perm, 0, self.n_cap).astype(np.int32)),
+            "level_starts": topo.level_starts,
+            "levels": len(topo.level_starts) - 1,
+            "lat": self._materialize_lat(lat),
+        }
+        return self._topo_mirror
+
+    def _materialize_lat(self, lat) -> dict:
+        """Device half of the lat mirror: upload the out-ELL id table and
+        derive each slot's captured epoch on the device from the resident
+        epochs (the edge snapshot and the epochs are of the same moment)."""
+        g = self.device_arrays()
+        ell_dst = self._upload(lat.ell_dst)
+        return {
+            "n_tot": lat.n_tot,
+            "n_real": lat.n_real,
+            "k": lat.k,
+            "ell_dst": ell_dst,
+            "ell_epoch": ell_live_epoch_init(lat.n_real, self.n_cap)(ell_dst, g.node_epoch),
+        }
+
+    def _run_lat_union(self, lat: dict, flat_ids: np.ndarray):
+        """Small union wave on the lat mirror. Returns (count, newly real
+        ids ascending) or None on capacity overflow (state untouched; the
+        caller runs the topo sweep)."""
+        g = self.device_arrays()
+        ids = np.full(self.LAT_SEED_MAX, lat["n_tot"], dtype=np.int32)
+        ids[: len(flat_ids)] = flat_ids
+        step = ell_live_union_step(
+            lat["n_tot"], lat["n_real"], self.n_cap, self.LAT_LCAP, self.LAT_CAP
+        )
+        _, count, acc, over = step(lat["ell_dst"], lat["ell_epoch"], g.node_epoch, g.invalid,
+                                   self._upload(ids))
+        if over:
+            return None
+        self.mirror_bursts += 1
+        self.lat_waves += 1
+        # acc is sorted ascending: the real ids (< n_real) are its prefix
+        newly = acc[:count].cpu().numpy().astype(np.int32)
+        if count:
+            self.invalid_version += 1
+            self._h_invalid[newly] = True
+        return count, newly
+
+    def _run_mirror_union(self, flat_ids: np.ndarray):
+        """A union burst as one topo sweep: gate (dense-BFS blocking through
+        the sweep's epochs) → ``run_topo_sweep_passes`` → finish (count,
+        compact, write back into the dense words)."""
+        m = self._topo_mirror
+        n_tot = m["n_tot"]
+        g = self.device_arrays()
+        garrays = m["garrays"]
+        new_ids = self._upload(m["inv_perm"][flat_ids].astype(np.int32))
+        node_epoch, seed_bits = topo_mirror_gate_step(n_tot)(
+            garrays.is_real, m["node_epoch0"], m["perm_clipped"], g.invalid, new_ids
+        )
+        # one pass: a freshly built mirror has no level-violating edges
+        state = run_topo_sweep_passes(m["level_starts"], garrays, seed_bits, node_epoch, 1)
+        _, count, out_ids, overflow = topo_mirror_finish_step(m["cap"], n_tot)(
+            garrays.is_real, m["perm_clipped"], g.invalid, state.invalid_bits
+        )
+        self.mirror_bursts += 1
+        return count, self._patch_host_invalid(count, out_ids.cpu().numpy(), overflow)
+
+    # ------------------------------------------------------------------ later slices
     def start_topo_mirror_rebuild(self, *args, **kwargs):
         _not_ported("start_topo_mirror_rebuild")
 

@@ -1,4 +1,6 @@
 """Device ops of the invalidation wave: bit packing, the ``or_popcount``
 finalizer, the BFS level (``wave_expand``: pure, merged, and for every shard
-of a mesh at once) and the ring all-gather, each hand-written kernel beside
-its plain PyTorch version."""
+of a mesh at once), the ring all-gather and the topo sweep (``topo_wave``),
+each hand-written kernel beside its plain PyTorch version; the ELL builders
+and lone-wave lat programs (``ell_wave``) and the bit-packed seed packers
+(``pull_wave``)."""

@@ -9,6 +9,11 @@ Libraries land in ``stl_fusion_tpu_torch/_build/`` (git-ignored), keyed by a
 hash of the source and the flags, so an edited source rebuilds and an
 unchanged one loads straight away. :func:`build_all` starts one ``nvcc`` per
 source at once and waits for all of them.
+
+Host libraries (``HOST_LIBS``: the graph packer ``csrc/graphpack.cpp``) are
+plain C++ built the same way with the host compiler (``g++ -O3 -shared
+-fPIC``) by :func:`load_host`, which raises when the build fails: no caller
+falls back quietly.
 """
 from __future__ import annotations
 
@@ -22,7 +27,7 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
-__all__ = ["KERNELS", "build_all", "build_info", "launch", "load"]
+__all__ = ["HOST_LIBS", "KERNELS", "build_all", "build_info", "launch", "load", "load_host"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -44,7 +49,25 @@ KERNELS: Dict[str, tuple] = {
         # the pointer table is a HOST array of n device pointers
         "ring_all_gather_table_launch": [_P, _P, _I, _LL, _P],
     }),
+    # level_starts is a HOST int64 array; the last pointer a host int (launches made)
+    "topo_sweep": ("topo_sweep.cu", {
+        "topo_sweep_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _I, _P,
+                              _P],
+    }),
 }
+
+#: host library → (source file, {C entry: (argument types, result type)})
+HOST_LIBS: Dict[str, tuple] = {
+    "graphpack": ("graphpack.cpp", {
+        "gp_build_ell": ([_P, _P, _LL, _LL, _I, _I], _P),
+        "gp_n_tot": ([_P], _LL),
+        "gp_fill_out": ([_P, _P, _I], _I),
+        "gp_free": ([_P], None),
+        "gp_topo_levels": ([_P, _LL, _I, _P], _I),
+    }),
+}
+
+HOST_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -138,3 +161,36 @@ def launch(name: str, entry: str, *args) -> None:
     err = getattr(load(name), entry)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: {entry} failed with CUDA error {err}")
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded host library ``name`` (``HOST_LIBS``), compiled with
+    ``g++`` into ``_build/`` first if needed. Raises when it cannot be
+    built or loaded."""
+    lib = _libs.get("host:" + name)
+    if lib is not None:
+        return lib
+    source, entries = HOST_LIBS[name]
+    src = CSRC / source
+    h = hashlib.sha256(src.read_bytes() + " ".join(HOST_FLAGS).encode()).hexdigest()
+    out = BUILD_DIR / f"{name}_host_{h[:16]}.so"
+    if not out.exists():
+        cxx = shutil.which("g++")
+        if cxx is None:
+            raise RuntimeError(f"{name}: no host C++ compiler (g++) to build {source}")
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        t0 = time.perf_counter()
+        proc = subprocess.run([cxx, *HOST_FLAGS, "-o", str(tmp), str(src)],
+                              capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed for {name}:\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+        build_info["host:" + name] = {"seconds": time.perf_counter() - t0, "cached": False}
+    lib = ctypes.CDLL(str(out))
+    for entry, (argtypes, restype) in entries.items():
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    _libs["host:" + name] = lib
+    return lib

@@ -140,7 +140,7 @@ def test_backend_later_slices_raise():
     with pytest.raises(NotImplementedError, match="A.3"):
         backend.bind_table_rows(None)
     with pytest.raises(NotImplementedError, match="A.4"):
-        backend.build_topo_mirror()
+        backend.invalidate_cascade_batch_lanes([])
     with pytest.raises(NotImplementedError, match="A.5"):
         hub.enable_nonblocking()
     assert pgraph.GraphBackend is pgraph.TpuGraphBackend

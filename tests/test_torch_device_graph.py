@@ -118,10 +118,11 @@ def test_from_numpy_state_round_trip():
 
 def test_mirror_methods_name_their_slice():
     pg = DeviceGraph(device="cpu")
-    with pytest.raises(NotImplementedError, match="A.4/A.5"):
-        pg.build_topo_mirror()
-    with pytest.raises(NotImplementedError, match="A.4/A.5"):
-        pg.run_waves_lanes([[0]])
+    for name, args in (("start_topo_mirror_rebuild", ()), ("poll_topo_mirror_rebuild", ()),
+                       ("set_adaptive_passes", (True,)), ("run_waves_union_seq", ([[0]],)),
+                       ("run_waves_lanes", ([[0]],))):
+        with pytest.raises(NotImplementedError, match="A.4/A.5"):
+            getattr(pg, name)(*args)
 
 
 def test_add_edges_rejects_ids_the_kernels_cannot_index():

@@ -253,3 +253,65 @@ def test_sharded_graph_on_card_matches_dense_and_cpu(card):
         np.testing.assert_array_equal(out[1], want_mask, err_msg=name)
         assert out[2] == results["cpu"][2] and out[4] == results["cpu"][4], name
         np.testing.assert_array_equal(out[3], results["cpu"][3], err_msg=name)
+
+
+@pytest.mark.parametrize("words", [1, 2, 16])
+@pytest.mark.parametrize("slack", [0, 2])  # k = 4 and k = 6 (the live mirror's rows)
+@pytest.mark.parametrize("start_level", [0, 1])
+def test_topo_sweep_kernel_matches_plain(card, words, slack, start_level):
+    """One launch per non-empty level; bits and per-word counts exact, with
+    pre-set bits, blocked rows (epoch -3) and quantization pad rows."""
+    from stl_fusion_tpu_torch.ops import topo_wave as tpw
+
+    rng = np.random.default_rng(10 * words + slack)
+    src, dst = power_law_dag(30000, avg_degree=3, seed=words)
+    g = tpw.build_topo_graph(src, dst, 30000, k=4, slack=slack)
+    ga = tpw.topo_graph_arrays(g, card)
+    lists = [rng.choice(30000, size=20, replace=False) for _ in range(32 * words)]
+    seeds = torch.from_numpy(tpw.topo_seeds_to_bits(g, lists, words=words)).to(card)
+    shape = (g.n_tot + 1,) if words == 1 else (g.n_tot + 1, words)
+    pre = torch.from_numpy(rng.integers(-(2**31), 2**31, size=shape, dtype=np.int32)).to(card)
+    pre[torch.from_numpy(rng.random(g.n_tot + 1) < 0.9).to(card)] = 0
+    epochs = tpw.topo_init_state(g.n_tot, device=card).node_epoch
+    epochs[torch.from_numpy(g.inv_perm[rng.choice(30000, 300, replace=False)]).to(card)] = -3
+    states = [tpw.TopoState(epochs, pre.clone()) for _ in range(2)]
+    _, want = tpw.topo_sweep_plain(g.level_starts, ga, seeds, states[0], start_level)
+    before = tpw.launches
+    _, got = tpw.topo_sweep(g.level_starts, ga, seeds, states[1], start_level)
+    torch.cuda.synchronize()
+    levels = g.level_starts
+    assert tpw.launches - before == sum(b > a for a, b in zip(levels, levels[1:]))
+    assert torch.equal(states[1].invalid_bits, states[0].invalid_bits)
+    assert torch.equal(got, want) and int(got.sum()) > 0
+    # a pass with no seeds finds nothing new
+    _, again = tpw.topo_sweep(g.level_starts, ga, None, states[1], start_level)
+    assert int(again.sum()) == 0
+
+
+def test_mirror_routes_on_card_match_cpu(card):
+    rng = np.random.default_rng(8)
+    src, dst = power_law_dag(50000, avg_degree=3, seed=8)
+    graphs = [DeviceGraph(50000, len(src), device=d) for d in ("cpu", "cuda")]
+    bumped = rng.choice(50000, 500, replace=False)
+    bursts = [rng.choice(50000, 3, replace=False).tolist(),
+              rng.choice(50000, 2000, replace=False).tolist(),
+              (49999 - rng.choice(500, 200, replace=False)).tolist()]
+    results = []
+    for g in graphs:
+        g.add_nodes(50000)
+        g.add_edges(src, dst)
+        g.bump_epochs(bumped)
+        g.build_topo_mirror()
+        out = []
+        for seeds in bursts:
+            out.append(g.run_waves_union([seeds]))
+            g.mark_invalid(np.arange(100, 200, dtype=np.int32))
+        out.append(g.invalid_mask())
+        out.append((g.mirror_bursts, g.lat_waves))
+        results.append(out)
+    cpu, gpu = results
+    for a, b in zip(cpu[:3], gpu[:3]):
+        assert a[0] == b[0]
+        np.testing.assert_array_equal(b[1], a[1])
+    np.testing.assert_array_equal(gpu[3], cpu[3])
+    assert gpu[4] == cpu[4] == (3, 2)

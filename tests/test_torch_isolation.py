@@ -66,3 +66,23 @@ def test_explicit_cpu_runs():
     g.add_nodes(3)
     g.add_edges([0, 1], [1, 2])
     assert g.run_wave([0]) == 3
+
+
+def test_scan_covers_the_mirror_modules_and_the_packer_is_the_ports_own():
+    """The import scan reaches every module of the topo and lat slice, and
+    the host graph packer the port builds is its own source under
+    ``stl_fusion_tpu_torch/csrc`` (no path into the JAX package's
+    ``native/``)."""
+    from stl_fusion_tpu_torch.ops import _build
+
+    scanned = {f.relative_to(PKG).as_posix() for f in PKG.rglob("*.py")}
+    assert {"ops/pull_wave.py", "ops/ell_wave.py", "ops/topo_wave.py", "bench.py"} <= scanned
+    src = _build.CSRC / _build.HOST_LIBS["graphpack"][0]
+    assert src.is_file() and not src.is_symlink()
+    assert src.resolve().parent == (PKG / "csrc").resolve()
+    text = src.read_text()
+    for entry in _build.HOST_LIBS["graphpack"][1]:
+        assert f" {entry}(" in text, entry
+    for f in PKG.rglob("*.py"):
+        assert "native" not in {root for _, root in _import_roots(f)}
+        assert "stl_fusion_tpu/native" not in f.read_text(), f
