@@ -18,7 +18,9 @@ user calls. Phases, each printing one JSON line:
    burst on an 8-shard mesh on the card, with the watched node applied
    eagerly, the rest pending, and the recomputed totals right; then
    ``build_topo_mirror`` and one burst through the lat mirror, and the
-   same burst with the mirror built but ``mirror="off"``: identical;
+   same burst with the mirror built but ``mirror="off"``: identical; then
+   one ``invalidate_cascade_batch_lanes`` burst of 3 groups on the patched
+   mirror, each group's count equal to its union wave alone;
 4. ``power_law_10m`` — the BASELINE stress graph (``power_law_dag(10M,
    avg_degree=3, seed=7)``) in ``DeviceGraph(device="cuda")`` with 1% of nodes
    epoch-bumped after capture: ``run_waves_union`` from 100,000 seeds,
@@ -46,9 +48,22 @@ user calls. Phases, each printing one JSON line:
 8. ``profile`` — ``torch.profiler`` over one more 10M union wave and one
    sharded ring wave: device time by kernel, device calls per wave, the
    device's idle share, and the level kernel's launches (one per level);
-9. ``kernels``  — every kernel form against its plain PyTorch version on the
-   card, exact: ``or_popcount``; ``topo_sweep`` (the whole topo_10m sweep
-   and its widest level alone); ``wave_expand`` (pure) and
+9. ``churn_10m`` — the mirror of ``mirror_10m`` serving a churning graph,
+   in ``perf/live_path.py``'s shape (6 rounds of 2,000 level-ordered edges,
+   one level-violating edge in the run, and 4 recomputes, each round then
+   one 512-group lane burst of 8 seeds a group): every burst rides the
+   patched mirror (no synchronous rebuild), its union equals the dense
+   union and lanes 0, 31, 32 and 511 their dense waves; 2 passes after the
+   violating edge and the adaptive sweep equal to them; sequenced lone
+   waves and the patched lat mirror equal to their dense counterparts; a
+   background re-level after round 3, installed while rounds go on, and
+   1 pass and an exact burst after it; patch and burst ms, one burst
+   profiled, the re-level's seconds, peak memory;
+10. ``kernels`` — every kernel form against its plain PyTorch version on the
+   card, exact: ``or_popcount``; ``topo_sweep`` (the whole topo_10m sweep,
+   its widest level alone, and the lane burst's sweep on the churned mirror,
+   with its changed flag held against a before/after comparison);
+   ``lane_finish`` on that burst's bits; ``wave_expand`` (pure) and
    ``wave_expand_merge`` at the union wave's first and widest levels;
    ``wave_expand_shards`` at the sharded wave's first level; the ring from
    2-D rows (the main path's form) and from a list. Each with its time (CUDA
@@ -57,11 +72,12 @@ user calls. Phases, each printing one JSON line:
    function where there is one (the ring: the concatenation copied into
    all ``n`` rows; ``torch.cat`` alone is recorded beside it).
 
-The main path is three paths, each driven with every kernel's launch count
+The main path is four paths, each driven with every kernel's launch count
 set to 0 just before it and read just after: phases 3-4 (the dense wave)
 must launch ``or_popcount`` and ``wave_expand_merge``, phase 5 (the sharded
 wave) ``or_popcount``, ``wave_expand_shards`` and ``ring_all_gather``,
-phases 6-7 (the mirror) ``topo_sweep`` and no ``wave_expand``. Any
+phases 6-7 (the mirror) ``topo_sweep`` and no ``wave_expand``, phase 9 (the
+churn) ``topo_sweep`` and ``lane_finish``. Any
 failure raises and the script exits non-zero. The last lines are the kernel
 summary (the forms the main path runs), the ``nvidia-smi`` name and power
 limit, and
@@ -351,6 +367,36 @@ async def _hellocart(device) -> dict:
            and runs["lat"]["invalidated"] == runs["off"]["invalidated"],
            f"the lat and dense bursts differ: {runs}")
     out["mirror_bursts"] = runs
+
+    # a lane burst of 3 command groups, each in its own bit lane of one
+    # mirror sweep: each group's count equals the union wave of that group
+    # alone from the same state (the graph's run_waves_union, as
+    # invalidate_cascade_batch runs it, with the state restored after each)
+    c_total, fired = await watch_total()
+    nodes = {name: await capture(fn) for name, fn in (
+        ("apple", lambda: products.get("apple")), ("banana", lambda: products.get("banana")),
+        ("cherry", lambda: products.get("cherry")),
+        ("alice", lambda: carts.cart_total("alice")))}
+    groups = [[nodes["apple"]], [nodes["banana"], nodes["cherry"]], [nodes["alice"]]]
+    backend.flush()
+    saved = (graph.device_arrays().invalid.clone(), graph._h_invalid.copy())
+    alone = []
+    for group in groups:
+        alone.append(graph.run_waves_union([[backend.id_for(c) for c in group]], mirror="off")[0])
+        graph.device_arrays().invalid.copy_(saved[0])
+        graph._h_invalid = saved[1].copy()
+    bursts0, rebuilds0 = graph.mirror_bursts, graph.mirror_rebuilds
+    products.price["banana"] += 1.0
+    lane_counts = backend.invalidate_cascade_batch_lanes(groups).tolist()
+    out["lanes"] = {"counts": lane_counts, "alone": alone,
+                    "mirror_bursts": graph.mirror_bursts - bursts0,
+                    "mirror_patches": graph.mirror_patches,
+                    "mirror_rebuilds": graph.mirror_rebuilds - rebuilds0}
+    expect(lane_counts == alone == [3, 5, 2], f"lane burst counts {out['lanes']}")
+    expect(graph.mirror_bursts == bursts0 + 1, f"the lane burst rode the mirror: {out['lanes']}")
+    expect(fired == [c_total] and all(c.is_invalidated for c in nodes.values()),
+           "lane burst: watched total eager, the groups' nodes invalid")
+    expect(await totals.total() == truth(), "total after invalidate_cascade_batch_lanes")
     out["mirror_rebuilds"] = graph.mirror_rebuilds
     out.update(nodes=backend.node_count, edges=backend.edge_count, waves=backend.waves_run)
     return out
@@ -745,6 +791,259 @@ def phase_topo_10m(device, card: str, n: int = N_NODES, n_seeds: int = N_UNION_S
     return out
 
 
+#: perf/live_path.py's defaults (LIVE_ROUNDS, LIVE_EDGE_CHURN, LIVE_SCALAR_CHURN,
+#: LIVE_LANE_GROUPS, LIVE_LANE_SEEDS), at bench.py's 10M nodes
+CHURN_ROUNDS, EDGE_CHURN, SCALAR_CHURN, LANE_GROUPS, LANE_SEEDS = 6, 2000, 4, 512, 8
+#: rounds before the background re-level starts, and its install deadline
+REBUILD_AFTER_ROUND, REBUILD_CAP_S = 3, 180.0
+
+
+def phase_churn(device, card: str, level: dict) -> dict:
+    """The mirror serving a churning graph: ``power_law_10m``'s
+    ``DeviceGraph`` with the mirror ``mirror_10m`` built, for
+    ``CHURN_ROUNDS`` rounds of ``perf/live_path.py``'s shape. Each round:
+    ``EDGE_CHURN`` random pairs oriented from the lower mirror level to the
+    higher (``make_churn_edges``: same-level pairs dropped but ONE, the
+    run's level-violating edge, oriented by id) and ``SCALAR_CHURN``
+    recomputes (a bump, then the node's live in-edges re-added at the new
+    epoch); then from a cleared state one ``run_waves_lanes`` burst of
+    ``LANE_GROUPS`` groups of ``LANE_SEEDS`` distinct ids, which must ride the
+    patched mirror (a patch, one mirror burst, no synchronous rebuild).
+    Exactness: the union mask equals the dense union of all the burst's
+    seeds, and lanes 0, 31, 32 and 511 each equal a dense wave of their group
+    (``mirror="off"``, from a cleared state). In the violating edge's round
+    the mirror sweeps 2 passes, and the burst under
+    ``set_adaptive_passes(True)`` gives the same counts and mask. In round 2,
+    ``run_waves_union_seq`` of 8 lone waves of 32 shallow seeds equals 8
+    ``run_waves_union`` calls, and the 256 shallow seeds through the patched
+    lat mirror equal the dense collect wave. After round
+    ``REBUILD_AFTER_ROUND`` a background re-level starts; rounds go on, it is
+    polled until it installs (at most ``REBUILD_CAP_S``), and then the
+    mirror sweeps 1 pass and the next burst is exact."""
+    import numpy as np
+    import torch
+
+    from stl_fusion_tpu_torch.ops import topo_wave as tpw
+
+    g, n = level["graph"], level["n"]
+    m = g._topo_mirror
+    if m is None or not g._mirror_valid():
+        raise AssertionError("churn_10m: mirror_10m's mirror is not there to churn")
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(GRAPH_SEED + 1)
+    out = {"phase": "churn_10m", "card": card, "nodes": n, "rounds": [],
+           "shape": {"rounds": CHURN_ROUNDS, "edge_churn": EDGE_CHURN,
+                     "scalar_churn": SCALAR_CHURN, "lane_groups": LANE_GROUPS,
+                     "lane_seeds": LANE_SEEDS}}
+    viol = {"done": False, "round": None}
+
+    def churn_edges():
+        a = rng.integers(0, n, size=EDGE_CHURN)
+        b = rng.integers(0, n, size=EDGE_CHURN)
+        a, b = a[a != b], b[a != b]
+        mm = g._topo_mirror
+        ls, inv_perm = mm["level_starts_arr"], mm["inv_perm"]
+        la = np.searchsorted(ls, inv_perm[a], side="right") - 1
+        lb = np.searchsorted(ls, inv_perm[b], side="right") - 1
+        swap = la > lb
+        u, v = np.where(swap, b, a), np.where(swap, a, b)
+        same = la == lb
+        keep = ~same
+        if not viol["done"]:
+            tail = np.nonzero(same)[0][:1]
+            keep[tail] = True
+            if tail.size:
+                viol["done"] = True
+        flip = same[keep] & (u[keep] > v[keep])
+        u, v = u[keep].copy(), v[keep].copy()
+        u[flip], v[flip] = v[flip], u[flip]
+        return u.astype(np.int32), v.astype(np.int32), int(same[keep].sum())
+
+    def pick_recomputes():
+        """SCALAR_CHURN random nodes that have live in-edges, with their
+        live in-edges' sources (every node of this graph has 1-3)."""
+        cand = rng.integers(1, n, size=4 * SCALAR_CHURN)
+        e = g.n_edges
+        dst_all = g._h_edge_dst[:e]
+        sel = np.nonzero(np.isin(dst_all, cand))[0]
+        sel = sel[g._h_node_epoch[dst_all[sel]] == g._h_edge_dst_epoch[:e][sel]]
+        picked = np.unique(dst_all[sel])[:SCALAR_CHURN]
+        return {int(v): g._h_edge_src[:e][sel][dst_all[sel] == v].copy() for v in picked}
+
+    def recompute(srcs):
+        """The scalar recompute: bump, then re-add the live in-edges at the
+        new epoch."""
+        g.bump_epochs(np.asarray(list(srcs), np.int32))
+        for v, s in srcs.items():
+            g.add_edges(s, np.full(len(s), v, np.int32))
+        return len(srcs), sum(len(s) for s in srcs.values())
+
+    def dense_check(what, counts, mask, groups):
+        flat = np.concatenate([np.asarray(x) for x in groups])
+        g.clear_invalid()
+        c, ids = g.run_waves_union([flat.tolist()], mirror="off")
+        if c != int(mask.sum()) or not np.array_equal(np.nonzero(mask)[0], ids):
+            raise AssertionError(f"churn_10m {what}: the union mask differs from the dense "
+                                 f"union of its {len(flat)} seeds ({int(mask.sum())} vs {c})")
+        res = {"union_newly": int(c), "lanes": {}}
+        for lane in (0, 31, 32, 511):
+            g.clear_invalid()
+            c, _ = g.run_waves_union([groups[lane].tolist()], mirror="off")
+            if c != counts[lane]:
+                raise AssertionError(f"churn_10m {what}: lane {lane} counts {counts[lane]}, "
+                                     f"its dense wave {c}")
+            res["lanes"][lane] = int(c)
+        return res
+
+    def burst(r, what):
+        grng = np.random.default_rng(7 + r)
+        groups = []
+        while len(groups) < LANE_GROUPS:
+            ids = np.unique(grng.integers(0, n, size=LANE_SEEDS))
+            if ids.size == LANE_SEEDS:
+                groups.append(ids)
+        g.clear_invalid()
+        before = (g.mirror_patches, g.mirror_bursts, g.mirror_rebuilds, g.mirror_patch_s,
+                  tpw.launches, tpw.lane_finish_launches)
+        sync(device)
+        t = time.perf_counter()
+        counts, mask = g.run_waves_lanes([x.tolist() for x in groups])
+        sync(device)
+        ms = (time.perf_counter() - t) * 1e3
+        rec = {"burst_ms": ms, "patched": g.mirror_patches - before[0],
+               "patch_ms": (g.mirror_patch_s - before[3]) * 1e3,
+               "passes": g._topo_mirror["passes"], "n_viol": g._topo_mirror.get("n_viol", 0),
+               "topo_sweep_launches": tpw.launches - before[4],
+               "lane_finish_launches": tpw.lane_finish_launches - before[5],
+               "newly": int(counts.sum()), "union_newly": int(mask[:n].sum())}
+        if g.mirror_bursts != before[1] + 1 or g.mirror_rebuilds != before[2]:
+            raise AssertionError(f"churn_10m {what}: the burst did not ride the mirror "
+                                 f"(bursts +{g.mirror_bursts - before[1]}, synchronous "
+                                 f"rebuilds +{g.mirror_rebuilds - before[2]})")
+        return groups, counts, mask[:n], rec
+
+    shallow = level["shallow"]
+    rebuild = None
+    for r in range(CHURN_ROUNDS):
+        rec = {"round": r}
+        if rebuild is not None and rebuild.get("installed_s") is None:
+            t = time.perf_counter()
+            if g.poll_topo_mirror_rebuild():
+                rebuild["installed_s"] = time.perf_counter() - rebuild["t0"]
+                rebuild["install_ms"] = (time.perf_counter() - t) * 1e3
+                rebuild["installed_before_round"] = r
+        srcs = pick_recomputes()
+        t = time.perf_counter()
+        u, v, n_same = churn_edges()
+        g.add_edges(u, v)
+        rec["recomputed"], rec["recaptured_edges"] = recompute(srcs)
+        rec["churn_ms"] = (time.perf_counter() - t) * 1e3
+        rec["edges_added"] = int(len(u))
+        groups, counts, mask, brec = burst(r, f"round {r}")
+        rec.update(brec)
+        if not brec["patched"]:
+            raise AssertionError(f"churn_10m round {r}: the churn was not patched in")
+        if n_same:
+            viol["round"] = r
+            if brec["passes"] != 2:
+                raise AssertionError(f"churn_10m round {r}: the violating edge left "
+                                     f"{brec['passes']} passes, not 2")
+            g.set_adaptive_passes(True)
+            _, counts_ad, mask_ad, arec = burst(r, f"round {r} (adaptive)")
+            g.set_adaptive_passes(False)
+            if not (np.array_equal(counts_ad, counts) and np.array_equal(mask_ad, mask)):
+                raise AssertionError(f"churn_10m round {r}: adaptive passes differ from 2 passes")
+            rec["adaptive"] = {"burst_ms": arec["burst_ms"],
+                               "topo_sweep_launches": arec["topo_sweep_launches"],
+                               "stages": g.adaptive_stages}
+        rec["exact"] = dense_check(f"round {r}", counts, mask, groups)
+        if r == 1:
+            waves = shallow.reshape(8, 32)
+            g.clear_invalid()
+            lat0 = g.lat_waves
+            seq_counts, seq_ids = g.run_waves_union_seq([w.tolist() for w in waves])
+            seq_mask = g.invalid_mask()
+            if g.lat_waves != lat0 + 8:
+                raise AssertionError("churn_10m: run_waves_union_seq did not ride the lat mirror")
+            g.clear_invalid()
+            one = [g.run_waves_union([w.tolist()])[0] for w in waves]
+            if seq_counts.tolist() != one or not np.array_equal(g.invalid_mask(), seq_mask):
+                raise AssertionError(f"churn_10m: run_waves_union_seq {seq_counts.tolist()} "
+                                     f"differs from 8 run_waves_union calls {one}")
+            g.clear_invalid()
+            lat0 = g.lat_waves
+            c_lat, ids_lat = g.run_waves_union([shallow.tolist()])
+            g.clear_invalid()
+            c_dense, ids_dense = g.run_wave_collect(shallow.tolist())
+            if g.lat_waves != lat0 + 1 or c_lat != c_dense or not np.array_equal(
+                    np.sort(ids_lat), ids_dense):
+                raise AssertionError(f"churn_10m: the patched lat mirror's wave ({c_lat}) "
+                                     f"differs from the dense collect wave ({c_dense})")
+            rec["lone_waves"] = {"seq_counts": seq_counts.tolist(), "lat_newly": int(c_lat)}
+        if r + 1 == REBUILD_AFTER_ROUND:
+            if not g.start_topo_mirror_rebuild():
+                raise AssertionError("churn_10m: a background re-level was already in flight")
+            rebuild = {"t0": time.perf_counter(), "started_after_round": r, "installed_s": None}
+        out["rounds"].append(rec)
+        emit({"phase": "churn_10m_round", **rec})
+    if viol["round"] is None:
+        raise AssertionError("churn_10m: no same-level pair drawn for the violating edge")
+    if rebuild is None:
+        raise AssertionError("churn_10m: the background re-level never started")
+    if rebuild["installed_s"] is None:
+        thread = g._async_rebuild["thread"]
+        thread.join(max(REBUILD_CAP_S - (time.perf_counter() - rebuild["t0"]), 0.0))
+        t = time.perf_counter()
+        if not g.poll_topo_mirror_rebuild():
+            raise AssertionError(f"churn_10m: the re-level did not install within "
+                                 f"{REBUILD_CAP_S} s")
+        rebuild["installed_s"] = time.perf_counter() - rebuild["t0"]
+        rebuild["install_ms"] = (time.perf_counter() - t) * 1e3
+        rebuild["installed_before_round"] = CHURN_ROUNDS
+    rebuild.pop("t0")
+    groups, counts, mask, brec = burst(CHURN_ROUNDS, "after the re-level")
+    if brec["passes"] != 1:
+        raise AssertionError(f"churn_10m: {brec['passes']} passes after the re-level, not 1")
+    brec["exact"] = dense_check("after the re-level", counts, mask, groups)
+    rebuild["next_burst"] = brec
+    rebuild["mirror_rebuilds"] = g.mirror_rebuilds
+
+    # three bursts profiled (the last groups, each from a cleared state: the
+    # trace may drop a record, and a burst has one lane_finish launch)
+    per_sweep = _nonempty_levels(g._topo_mirror["level_starts"])
+    group_lists = [x.tolist() for x in groups]
+
+    def bursts():
+        for _ in range(3):
+            g.clear_invalid()
+            g.run_waves_lanes(group_lists)
+    wall_ms, by_name, calls, seen = profile_checked(
+        device, bursts, {"topo_sweep": 3 * per_sweep * brec["passes"], "lane_finish": 3},
+        "churn_10m burst")
+    wall_ms, calls = wall_ms / 3, calls / 3
+    dev_ms = sum(v["ms"] for v in by_name.values()) / 3
+    ms = [r["burst_ms"] for r in out["rounds"]]
+    out.update(
+        violating_round=viol["round"], rebuild=rebuild,
+        patch_ms=[r["patch_ms"] for r in out["rounds"]], burst_ms=ms,
+        burst_ms_median=float(np.median(ms)),
+        mirror_patches=g.mirror_patches, mirror_bursts=g.mirror_bursts,
+        profile={"wall_ms": wall_ms, "device_ms": dev_ms, "device_calls": calls,
+                 "idle_share": 1 - dev_ms / wall_ms,
+                 "topo_sweep_device_ms": seen["topo_sweep"][0] * per_sweep * brec["passes"],
+                 "lane_finish_device_ms": seen["lane_finish"][0],
+                 "profiled_launches": {f: n for f, (_, n) in seen.items()},
+                 "top_kernels_3_bursts": dict(
+                     sorted(by_name.items(), key=lambda kv: -kv[1]["ms"])[:8])})
+    if device.type == "cuda":
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    g.clear_invalid()
+    emit(out)
+    out["groups"] = groups
+    return out
+
+
 def sweep_bytes(graph, words: int, start_level: int, seeded: bool, levels=None) -> int:
     """Bytes a sweep (or the ``levels`` range of one) must move: each
     gathered row's in_src and edge_epoch rows and epoch, each row's
@@ -820,6 +1119,7 @@ SYMBOLS = {
     "wave_expand_shards": "wave_expand_kernel<true,true>",
     "ring_all_gather": "ring_gather_kernel",
     "topo_sweep": "topo_sweep_kernel",
+    "lane_finish": "lane_finish_kernel",
 }
 
 
@@ -846,7 +1146,106 @@ def phase_profile(device, wave: str, run, reset, levels: int, exchange=None) -> 
     return out
 
 
-def phase_kernels(device, main_launches: dict, level: dict, sg, topo: dict, card: str) -> dict:
+def lane_kernel_rows(device, level, churn, rng, row, check, restored, timed_pair, src_topo,
+                     rep_topo) -> None:
+    """``phase_kernels``' rows of the lane burst: ``topo_sweep`` at its shape
+    (the changed flag held against a plain before/after comparison too) and
+    ``lane_finish``, each against its plain version, exact."""
+    # the churned 10M mirror (W = 16, k = 6): churn_10m's last groups from a
+    # cleared state through the lane gate, then the sweep (one pass: the
+    # re-level left none violated) and lane_finish
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from stl_fusion_tpu_torch.ops import topo_wave as tpw
+    from stl_fusion_tpu_torch.ops.bitops import pack_bits
+    from stl_fusion_tpu_torch.ops.pull_wave import pack_lane_matrix
+
+    g = level["graph"]
+    m = g._topo_mirror
+    mga, n_tot, lstarts = m["garrays"], m["n_tot"], m["level_starts"]
+    g.clear_invalid()
+    mat, lw = pack_lane_matrix([x.tolist() for x in churn["groups"]], pad_id=n_tot,
+                               n_valid=m["n_nodes"], id_map=m["inv_perm"])
+    g_inv = g.device_arrays().invalid
+    node_epoch, lseeds = tpw.topo_mirror_gate_lanes_step(n_tot, lw)(
+        mga.is_real, m["node_epoch0"], m["perm_clipped"], g_inv, torch.from_numpy(mat).to(device))
+    lzero = torch.zeros_like(lseeds)
+    lst = tpw.TopoState(node_epoch, torch.zeros_like(lseeds))
+    plain_lst = tpw.TopoState(node_epoch, torch.zeros_like(lseeds))
+    call, restore = restored([(lst.invalid_bits, lzero)],
+                             lambda: tpw.topo_sweep(lstarts, mga, lseeds, lst, 0))
+    plain_call, _ = restored([(plain_lst.invalid_bits, lzero)],
+                             lambda: tpw.topo_sweep_plain(lstarts, mga, lseeds, plain_lst, 0))
+    got, want = call()[1], plain_call()[1]
+    e = check("topo_sweep (lane burst)", [got], [want])
+    if not torch.equal(lst.invalid_bits, plain_lst.invalid_bits):
+        raise AssertionError("topo_sweep (lane burst): bits differ from its plain version")
+    # the changed flag against a plain before/after comparison: a pass over
+    # the swept state (no row changes), then one after the widest level's
+    # rows were cleared (they light again)
+    wl = max(range(1, len(lstarts) - 1), key=lambda lv: lstarts[lv + 1] - lstarts[lv])
+    flags = {}
+    for case in ("swept", "level cleared"):
+        if case == "level cleared":
+            lst.invalid_bits[lstarts[wl]:lstarts[wl + 1]] = 0
+        before_bits = lst.invalid_bits.clone()
+        plain_st = tpw.TopoState(node_epoch, before_bits.clone())
+        flag, plain_flag = (torch.zeros(1, dtype=torch.int32, device=device) for _ in range(2))
+        tpw.topo_sweep(lstarts, mga, None, lst, 0, changed=flag)
+        tpw.topo_sweep_plain(lstarts, mga, None, plain_st, 0, changed=plain_flag)
+        want_flag = int(bool((lst.invalid_bits != before_bits).any()))
+        if not (int(flag) == int(plain_flag) == want_flag == (case != "swept")
+                and torch.equal(lst.invalid_bits, plain_st.invalid_bits)):
+            raise AssertionError(f"topo_sweep changed flag ({case}): kernel {int(flag)}, plain "
+                                 f"{int(plain_flag)}, before/after {want_flag}")
+        flags[case] = int(flag)
+    del plain_st, before_bits
+    ms, plain_ms, with_ms, restore_ms = timed_pair(call, restore, plain_call, plain_reps=3)
+    mview = SimpleNamespace(level_starts=lstarts, in_src=m["h_in_src"], n_tot=n_tot)
+    row("topo_sweep (lane burst)", "topo_sweep", src_topo, rep_topo, e, ms, plain_ms,
+        sweep_bytes(mview, lw, 0, True), 0, None, call=call, per_call=_nonempty_levels(lstarts),
+        shape=(f"{n_tot + 1} rows x int32[{lw}], k={m['h_in_src'].shape[1]}, "
+               f"{len(lstarts) - 1} levels, {len(churn['groups'])} lanes of churn_10m"),
+        ms_with_restore=with_ms, restore_ms=restore_ms, newly=int(got.long().sum()),
+        changed_flag=flags)
+    del plain_lst
+
+    # lane_finish on that swept state: against its plain version from the
+    # main path's cleared dense state and from one with 1/8 of nodes invalid
+    call()
+    final, is_real, perm = lst.invalid_bits, mga.is_real, m["perm_clipped"]
+    zero_w = torch.zeros_like(g_inv)
+    some_w = pack_bits(torch.from_numpy(rng.random(32 * g_inv.shape[0]) < 0.125).to(device))
+    e, unions = 0, {}
+    for name, w0 in (("cleared", zero_w), ("1/8 invalid", some_w)):
+        gk, gp = w0.clone(), w0.clone()
+        got = tpw.lane_finish(final, is_real, perm, gk)
+        want = tpw.lane_finish_plain(final, is_real, perm, gp)
+        e = max(e, check(f"lane_finish ({name})", [got[0], got[1], got[2], gk],
+                         [want[0], want[1], want[2], gp]))
+        unions[name] = int(got[1])
+    gk, gp = zero_w.clone(), zero_w.clone()
+    call, restore = restored([(gk, zero_w)], lambda: tpw.lane_finish(final, is_real, perm, gk))
+    plain_call, _ = restored([(gp, zero_w)],
+                             lambda: tpw.lane_finish_plain(final, is_real, perm, gp))
+    ms, plain_ms, with_ms, restore_ms = timed_pair(call, restore, plain_call, plain_reps=3)
+    rows_n, real_n = n_tot + 1, int(is_real.sum())
+    row("lane_finish", "lane_finish", "stl_fusion_tpu_torch/csrc/lane_finish.cu",
+        "stl_fusion_tpu/ops/topo_wave.py:768 (XLA topo_mirror_finish_lanes_step and "
+        "_lane_counts_blocked :446; no Pallas kernel)", e, ms, plain_ms,
+        rows_n * (4 * lw + 1 + 4) + real_n * 4 + unions["cleared"] * 8 + g_inv.shape[0] * 4,
+        rows_n * 32 * lw, None, call=call,
+        shape=(f"{rows_n} rows x int32[{lw}] ({real_n} real), {g_inv.shape[0]} dense words, "
+               f"{unions['cleared']} union rows"),
+        ms_with_restore=with_ms, restore_ms=restore_ms, union_rows=unions)
+
+
+
+def phase_kernels(device, main_launches: dict, level: dict, sg, topo: dict, churn: dict,
+                  card: str) -> dict:
     """Every kernel form against its plain version on the card at the main
     path's shapes, exact, with its time (CUDA events), its device time
     (``torch.profiler``), the bound for the same work and a PyTorch call
@@ -1070,8 +1469,8 @@ def phase_kernels(device, main_launches: dict, level: dict, sg, topo: dict, card
     def level_call():
         _build.launch("topo_sweep", "topo_sweep_launch", tga.in_src.data_ptr(),
                       tga.edge_epoch.data_ptr(), st.node_epoch.data_ptr(), tga.is_real.data_ptr(),
-                      None, inv_k.data_ptr(), level_counts.data_ptr(), lvl.ctypes.data, 1, 0,
-                      graph.k, w, graph.n_tot, graph.n_tot + 1, int(w % 4 == 0),
+                      None, inv_k.data_ptr(), level_counts.data_ptr(), None, lvl.ctypes.data,
+                      1, 0, graph.k, w, graph.n_tot, graph.n_tot + 1, int(w % 4 == 0),
                       ctypes.addressof(made))
 
     def level_plain():
@@ -1086,6 +1485,9 @@ def phase_kernels(device, main_launches: dict, level: dict, sg, topo: dict, card
         sweep_bytes(graph, w, 1, False, levels=(wl, wl + 1)), 0, None, call=level_call,
         main_path=False,
         shape=f"level {wl}: rows [{a}, {b}) x int32[{w}], k={graph.k}")
+
+    lane_kernel_rows(device, level, churn, rng, row, check, restored, timed_pair, src_topo,
+                     rep_topo)
 
     # device time alone (torch.profiler): tells launch- or host-bound calls
     # from slow kernels, since CUDA events over back-to-back calls also time
@@ -1124,14 +1526,14 @@ def main() -> int:
                 "wave_expand_merge": wave_mod.form_launches["merge"],
                 "wave_expand_shards": wave_mod.form_launches["shards"],
                 "ring_all_gather": rag_mod.launches, "ring_cuda_launches": rag_mod.cuda_launches,
-                "topo_sweep": tpw_mod.launches}
+                "topo_sweep": tpw_mod.launches, "lane_finish": tpw_mod.lane_finish_launches}
 
     def drive(path, run, kernels, absent=()):
         """One path of the main path: counts to 0 just before, read just
         after; each named kernel form must have launched, each ``absent``
         one must not have, and the ring made one CUDA launch per gather."""
         opc_mod.launches = wave_mod.launches = rag_mod.launches = rag_mod.cuda_launches = 0
-        tpw_mod.launches = 0
+        tpw_mod.launches = tpw_mod.lane_finish_launches = 0
         wave_mod.form_launches.update(dict.fromkeys(wave_mod.form_launches, 0))
         res = run()
         got = counts()
@@ -1154,17 +1556,22 @@ def main() -> int:
                         ("or_popcount", "wave_expand_shards", "ring_all_gather"))
     topo, mirror = drive("mirror", lambda: (phase_mirror(device, dev["nvidia_smi"], pl["level"]),
                                             phase_topo_10m(device, dev["nvidia_smi"]))[1],
-                         ("topo_sweep",), absent=("wave_expand.all_forms",))
-    main_launches = {name: dense[name] + sharded[name] + mirror[name] for name in dense}
+                         ("topo_sweep",), absent=("wave_expand.all_forms", "lane_finish"))
     level = pl["level"]
     g, seeds = level["graph"], level["seeds"].tolist()
     calls = level["want_union"][2] + 1  # wave_expand calls per union wave
+    # the dense and ring waves' profiles on the graph as the oracle saw it,
+    # before churn_10m adds edges to it
     phase_profile(device, "run_waves_union", lambda: g.run_waves_union([seeds], mirror="off"),
                   g.clear_invalid, calls)
     sg = sh.pop("ring_graph")
     phase_profile(device, "sharded run_wave (ring)", lambda: sg.run_wave(seeds),
                   sg.clear_invalid, calls, exchange="ring")
-    kernels = phase_kernels(device, main_launches, level, sg, topo, dev["nvidia_smi"])
+    churn, churned = drive("churn", lambda: phase_churn(device, dev["nvidia_smi"], level),
+                           ("topo_sweep", "lane_finish"))
+    main_launches = {name: dense[name] + sharded[name] + mirror[name] + churned[name]
+                     for name in dense}
+    kernels = phase_kernels(device, main_launches, level, sg, topo, churn, dev["nvidia_smi"])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in kernels.values()

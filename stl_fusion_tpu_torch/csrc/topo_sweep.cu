@@ -12,6 +12,12 @@
 //   counts[w] += popcount((seed | gathered) & ~before)   (over is_real rows).
 // A row is written exactly once per sweep, so counting at write time is exact.
 // The null row n_tot ends 0 and is never gathered (it reads as 0).
+// Optionally `changed` (one device int) is set to 1 when any row, real or
+// virtual, gets a bit it lacked before the sweep: the stop test of the
+// adaptive multi-pass sweep (JAX `_sweep_adaptive` compares the whole state
+// before and after a pass; the counts above cover real rows only, and a
+// pass that lights only virtual collector rows still feeds real rows on the
+// next one).
 //
 // Launches: one per non-empty level, enqueued by topo_sweep_launch from the
 // host's level_starts with no sync between them (stream order makes level l
@@ -76,7 +82,7 @@ template <int VEC>
 __global__ void __launch_bounds__(kThreads)
 topo_sweep_kernel(const int* __restrict__ in_src, const int* __restrict__ edge_epoch,
                   const int* __restrict__ node_epoch, const unsigned char* __restrict__ is_real,
-                  const int* __restrict__ seed, int* inv, int* counts,
+                  const int* __restrict__ seed, int* inv, int* counts, int* changed,
                   long long r0, long long n0, long long r1, long long n1,
                   int k, int W, long long n_tot, int gather) {
   extern __shared__ int block_counts[];
@@ -89,6 +95,7 @@ topo_sweep_kernel(const int* __restrict__ in_src, const int* __restrict__ edge_e
   int local[VEC];
 #pragma unroll
   for (int c = 0; c < VEC; ++c) local[c] = 0;
+  int lit = 0;  // some row of this thread gained a bit
 
   const long long total = n0 + n1;
   const long long step = (long long)gridDim.x * rows_per_block;
@@ -133,7 +140,10 @@ topo_sweep_kernel(const int* __restrict__ in_src, const int* __restrict__ edge_e
     }
     int out[VEC];
 #pragma unroll
-    for (int c = 0; c < VEC; ++c) out[c] = before[c] | fire[c];
+    for (int c = 0; c < VEC; ++c) {
+      out[c] = before[c] | fire[c];
+      lit |= fire[c] & ~before[c];
+    }
     store_row<VEC>(inv + off, out);
     if (is_real[r]) {
 #pragma unroll
@@ -143,7 +153,7 @@ topo_sweep_kernel(const int* __restrict__ in_src, const int* __restrict__ edge_e
 #pragma unroll
   for (int c = 0; c < VEC; ++c)
     if (local[c]) atomicAdd(&block_counts[g * VEC + c], local[c]);
-  __syncthreads();
+  if (__syncthreads_or(lit) && threadIdx.x == 0 && changed != nullptr) atomicOr(changed, 1);
   for (int i = threadIdx.x; i < W; i += blockDim.x)
     if (block_counts[i]) atomicAdd(counts + i, block_counts[i]);
 }
@@ -151,8 +161,8 @@ topo_sweep_kernel(const int* __restrict__ in_src, const int* __restrict__ edge_e
 template <int VEC>
 int launch_rows(const int* in_src, const int* edge_epoch, const int* node_epoch,
                 const unsigned char* is_real, const int* seed, int* inv, int* counts,
-                long long r0, long long n0, long long r1, long long n1, int k, int W,
-                long long n_tot, int gather, cudaStream_t stream) {
+                int* changed, long long r0, long long n0, long long r1, long long n1, int k,
+                int W, long long n_tot, int gather, cudaStream_t stream) {
   const int tpr = W / VEC;
   const int threads = (kThreads / tpr) * tpr;
   const int rows_per_block = threads / tpr;
@@ -160,8 +170,8 @@ int launch_rows(const int* in_src, const int* edge_epoch, const int* node_epoch,
   if (blocks < 1) blocks = 1;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   topo_sweep_kernel<VEC><<<(unsigned)blocks, threads, W * sizeof(int), stream>>>(
-      in_src, edge_epoch, node_epoch, is_real, seed, inv, counts, r0, n0, r1, n1, k, W,
-      n_tot, gather);
+      in_src, edge_epoch, node_epoch, is_real, seed, inv, counts, changed, r0, n0, r1, n1, k,
+      W, n_tot, gather);
   return (int)cudaGetLastError();
 }
 
@@ -171,12 +181,14 @@ int launch_rows(const int* in_src, const int* edge_epoch, const int* node_epoch,
 // gathered); the rows [tail, n_tot] ride the first launch, merged only (a
 // whole sweep passes tail = level_starts[n_levels]: the pads past the last
 // level and the null row; tail = n_tot + 1 is no tail). `seed` may be null (no
-// seeds). `level_starts` is a HOST array of n_levels+1 int64; `launched` (host
-// int) receives the number of launches made. Requires W / (vec4 ? 4 : 1) <=
+// seeds); `changed` may be null (no changed flag). `level_starts` is a HOST
+// array of n_levels+1 int64; `launched` (host int) receives the number of
+// launches made. Requires W / (vec4 ? 4 : 1) <=
 // 256 and k <= 8 (checked by the wrapper).
 extern "C" int topo_sweep_launch(const void* in_src, const void* edge_epoch,
                                  const void* node_epoch, const void* is_real, const void* seed,
-                                 void* inv, void* counts, const void* level_starts, int n_levels,
+                                 void* inv, void* counts, void* changed,
+                                 const void* level_starts, int n_levels,
                                  int start_level, int k, int W, long long n_tot, long long tail,
                                  int vec4, void* launched, void* stream) {
   const long long* starts = (const long long*)level_starts;
@@ -189,11 +201,11 @@ extern "C" int topo_sweep_launch(const void* in_src, const void* edge_epoch,
     if (vec4)
       return launch_rows<4>((const int*)in_src, (const int*)edge_epoch, (const int*)node_epoch,
                             (const unsigned char*)is_real, (const int*)seed, (int*)inv,
-                            (int*)counts, a, n, r1, n1, k, W, n_tot, gather,
+                            (int*)counts, (int*)changed, a, n, r1, n1, k, W, n_tot, gather,
                             (cudaStream_t)stream);
     return launch_rows<1>((const int*)in_src, (const int*)edge_epoch, (const int*)node_epoch,
                           (const unsigned char*)is_real, (const int*)seed, (int*)inv,
-                          (int*)counts, a, n, r1, n1, k, W, n_tot, gather,
+                          (int*)counts, (int*)changed, a, n, r1, n1, k, W, n_tot, gather,
                           (cudaStream_t)stream);
   };
   for (int l = 0; l < n_levels && err == 0; ++l) {

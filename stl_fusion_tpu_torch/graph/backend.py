@@ -25,10 +25,12 @@ the previous version, and on device the new epoch's edges never matched.
 The sharded mirror (``to_sharded``, ``sharded_mirror``,
 ``invalidate_cascade_batch_sharded``) runs union bursts on a mesh of logical
 shards (``parallel/``). ``build_topo_mirror`` builds the device graph's topo
-and lat mirrors, which ``invalidate_cascade_batch`` then rides. Row blocks (columnar tables), lanes, the packed and
-routed mesh mirrors, super-rounds and the watchdog are later slices of the
-port and raise ``NotImplementedError``; the row-block checks on the apply
-path stay, as no-ops while no block is bound.
+and lat mirrors, which ``invalidate_cascade_batch`` then rides, and
+``invalidate_cascade_batch_lanes`` runs up to 512 independent command groups
+in one mirror sweep, one bit lane each. Row blocks (columnar tables), the
+packed and routed mesh mirrors, super-rounds and the watchdog are later
+slices of the port and raise ``NotImplementedError``; the row-block checks on
+the apply path stay, as no-ops while no block is bound.
 """
 from __future__ import annotations
 
@@ -126,16 +128,28 @@ class TpuGraphBackend:
     def _begin_wave(self):
         """Mint this wave's cause id (the open tracing span's, else a
         process-unique ``wave#seq``) and its seq. Returns ``(cause, seq)``."""
-        self.last_wave_seq = next_wave_seq()
+        cause, seqs = self._begin_wave_span(1)
+        return cause, seqs[0]
+
+    def _begin_wave_span(self, n: int):
+        """Mint ``n`` logical-wave seqs for one burst of several stages: the
+        profiler record carries the whole span, and the cause id names it
+        (``wave#s0-s1``) unless a tracing span is open. Returns ``(cause,
+        seqs)``."""
+        seqs = [next_wave_seq() for _ in range(max(n, 1))]
+        self.last_wave_seq = seqs[0]
         span = current_span()
         if span is not None:
             cause = span_cause_id(span)
+        elif len(seqs) == 1:
+            cause = f"{_CAUSE_PREFIX}/wave#{seqs[0]}"
         else:
-            cause = f"{_CAUSE_PREFIX}/wave#{self.last_wave_seq}"
+            cause = f"{_CAUSE_PREFIX}/wave#{seqs[0]}-{seqs[-1]}"
         self.last_cause_id = cause
-        return cause, self.last_wave_seq
+        return cause, seqs
 
-    def _profile_wave(self, kind, seeds, cause, t0, t1, newly, seq) -> None:
+    def _profile_wave(self, kind, seeds, cause, t0, t1, newly, seq, groups=None,
+                      fused_depth=None, seq_span=None, dispatches=None) -> None:
         if self.profiler.enabled:
             self.profiler.record_wave(
                 kind,
@@ -144,10 +158,21 @@ class TpuGraphBackend:
                 device_ms=(t1 - t0) * 1e3,
                 apply_ms=(time.perf_counter() - t1) * 1e3,
                 cause=cause,
+                groups=groups,
                 seq=seq,
+                fused_depth=fused_depth,
+                seq_span=seq_span,
+                dispatches=dispatches,
             )
+            if fused_depth is not None and dispatches:
+                per = max(int(round(fused_depth / dispatches)), 1)
+                for _ in range(int(dispatches)):
+                    self.profiler.note_fused_dispatch(per)
         if RECORDER.enabled:
-            RECORDER.note("wave", cause=cause, wave=seq, detail=f"{kind}: seeds={seeds} newly={newly}")
+            detail = f"{kind}: seeds={seeds} newly={newly}"
+            if fused_depth is not None:
+                detail += f" fused_depth={fused_depth}"
+            RECORDER.note("wave", cause=cause, wave=seq, detail=detail)
 
     # ------------------------------------------------------------------ event feed
     def _on_register(self, computed: "Computed") -> None:
@@ -219,6 +244,12 @@ class TpuGraphBackend:
 
     def _wave_union(self, seed_lists):
         return self.graph.run_waves_union(seed_lists)
+
+    def _wave_lanes(self, seed_lists):
+        return self.graph.run_waves_lanes(seed_lists)
+
+    def _wave_union_seq(self, seed_lists):
+        return self.graph.run_waves_union_seq(seed_lists)
 
     # ------------------------------------------------------------------ flush
     def flush(self) -> None:
@@ -459,17 +490,61 @@ class TpuGraphBackend:
     def refresh_block_on_device(self, *args, **kwargs):
         _not_ported("refresh_block_on_device", "A.3 (columnar memo table)")
 
+    def cascade_rows_lanes(self, *args, **kwargs):
+        _not_ported("cascade_rows_lanes", "A.3 (columnar memo table: row-block lane bursts)")
+
     def build_topo_mirror(self, k: int = 4, cap: int = 65536) -> dict:
-        """Build/refresh the topo and lat mirrors of the live graph: while
-        the live edge set stays the same, ``invalidate_cascade_batch``
-        bursts ride them (a lone wave on the lat mirror, a larger burst as
-        one depth-free sweep) instead of a level-by-level BFS. Any live-edge
-        change routes bursts back to the dense path until this runs again."""
+        """Build/refresh the topo and lat mirrors of the live graph:
+        ``invalidate_cascade_batch`` bursts then ride them (a lone wave on
+        the lat mirror, a larger burst as one depth-free sweep) instead of a
+        level-by-level BFS. Structural changes patch into the mirror at its
+        next use; an unpatchable one routes bursts back to the dense path
+        until this runs again."""
         self.flush()
         return self.graph.build_topo_mirror(k=k, cap=cap)
 
-    def invalidate_cascade_batch_lanes(self, *args, **kwargs):
-        _not_ported("invalidate_cascade_batch_lanes", "A.4 (mirror lane bursts)")
+    #: groups per lane chunk at the default word width (32 * max_words=16)
+    _LANES_CHUNK = 512
+
+    def invalidate_cascade_batch_lanes(self, groups: Sequence[Sequence["Computed"]]) -> np.ndarray:
+        """Lane-packed live burst: each group (the computeds one command's
+        completion invalidates) cascades INDEPENDENTLY in its own bit lane,
+        32 groups per packed word, in one topo-mirror sweep per
+        ``_LANES_CHUNK`` groups. Per-group semantics = a dense BFS from the
+        pre-burst invalid state; the UNION of the closures is applied to the
+        hub once, two-tier like every other wave path. Returns per-group
+        newly-invalidated counts (int64[len(groups)]; a computed not in the
+        graph falls back to an immediate host invalidation and counts 1 in
+        its group)."""
+        self.flush()
+        seed_lists: List[List[int]] = []
+        fallback = np.zeros(len(groups), dtype=np.int64)
+        for gi, group in enumerate(groups):
+            ids: List[int] = []
+            for c in group:
+                nid = self._id_by_input.get(c.input)
+                if nid is None:
+                    c.invalidate(immediately=True)
+                    fallback[gi] += 1
+                else:
+                    ids.append(nid)
+            seed_lists.append(ids)
+        n_stages = max(-(-len(seed_lists) // self._LANES_CHUNK), 1)
+        cause, seqs = self._begin_wave_span(n_stages)
+        self.graph.last_lanes_info = None
+        t0 = time.perf_counter()
+        counts, union_mask = self._wave_lanes(seed_lists)
+        t1 = time.perf_counter()
+        self._apply_newly(union_mask)
+        self.waves_run += len(groups)
+        self.device_invalidations += int(counts.sum())
+        info = self.graph.last_lanes_info or {}
+        self._profile_wave(
+            "lanes", sum(len(s) for s in seed_lists), cause, t0, t1, int(counts.sum()), seqs[0],
+            groups=len(groups), fused_depth=info.get("depth"), seq_span=(seqs[0], seqs[-1]),
+            dispatches=info.get("dispatches"),
+        )
+        return counts + fallback
 
     def enable_super_rounds(self, *args, **kwargs):
         _not_ported("enable_super_rounds", "A.5 (resident live loop)")

@@ -14,34 +14,49 @@ tombstoning by epoch until :meth:`DeviceGraph.compact`.
 The invalid state lives on the device as packed int32 words (node ``i`` is
 bit ``i & 31`` of word ``i >> 5``) and on the host as a bool mask.
 
-The topo and lat mirrors (:meth:`DeviceGraph.build_topo_mirror`): once built
-and still matching the live edge set, ``run_waves_union(mirror="auto")``
-sends a burst of ≤ ``LAT_SEED_MAX`` seeds to the lat mirror's O(closure)
-lone wave (``ops/ell_wave.py``) and every other burst, or a lat overflow, to
-one depth-free topo sweep (``ops/topo_wave.py``). The port keeps no patch
-log: any structural change that alters the live edge set makes the mirror
-stale (the fingerprint check of :func:`check_structure_cache`), and bursts
-take the dense path until the mirror is built again — the same answers the
-JAX package gets by patching. The patch path, the async rebuild, the disk
-cache, adaptive passes and the lane paths are later slices (ROADMAP A.4/A.5).
+The topo and lat mirrors (:meth:`DeviceGraph.build_topo_mirror`): once built,
+``run_waves_union(mirror="auto")`` sends a burst of ≤ ``LAT_SEED_MAX`` seeds
+to the lat mirror's O(closure) lone wave (``ops/ell_wave.py``) and every
+other burst, or a lat overflow, to one depth-free topo sweep
+(``ops/topo_wave.py``); :meth:`DeviceGraph.run_waves_lanes` runs up to 512
+independent command groups, one bit lane each, in one sweep. The mirror
+follows a churning graph through a structural delta log: edge appends and
+epoch bumps since the build are spliced into its tables in place at the
+next use (:meth:`DeviceGraph._try_patch_mirror`); a level-violating edge
+costs one more sweep pass, past 3 of them a background re-level starts
+(:meth:`DeviceGraph.start_topo_mirror_rebuild`), and an unpatchable delta
+breaks the log, after which bursts take the dense path until the mirror is
+built again. The disk mirror cache and the non-blocking lane chain are
+later slices (ROADMAP A.4/A.5).
 """
 from __future__ import annotations
 
 import hashlib
-from typing import Optional, Sequence, Tuple
+import logging
+import os
+import threading
+import time
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..diagnostics.metrics import global_metrics
 from ..ops.bitops import ids_to_word_masks, pack_mask_host, unpack_words_host
-from ..ops.ell_wave import build_ell, ell_live_epoch_init, ell_live_union_step, widen_ell
+from ..ops.ell_wave import (
+    build_ell,
+    ell_live_epoch_init,
+    ell_live_union_chain_step,
+    ell_live_union_step,
+    widen_ell,
+)
+from ..ops.pull_wave import pack_lane_matrix
 from ..ops.topo_wave import (
     build_topo_graph,
-    run_topo_sweep_passes,
     topo_graph_arrays,
-    topo_mirror_finish_step,
-    topo_mirror_gate_step,
+    topo_mirror_fused_lanes_step,
+    topo_mirror_fused_union_step,
 )
 from ..ops.wave import (
     GraphArrays,
@@ -55,7 +70,7 @@ from ..ops.wave import (
 
 __all__ = ["DeviceGraph", "check_structure_cache"]
 
-_MIRROR_SLICE = "ROADMAP A.4/A.5 (mirror patch path, async rebuild, lanes; resident live loop)"
+log = logging.getLogger("stl_fusion_tpu_torch")
 
 
 def _round_up_pow2(x: int) -> int:
@@ -65,13 +80,13 @@ def _round_up_pow2(x: int) -> int:
     return n
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(f"DeviceGraph.{what} is not ported yet: {_MIRROR_SLICE}")
+def _not_ported(what: str, slice_: str):
+    raise NotImplementedError(f"DeviceGraph.{what} is not ported yet: ROADMAP {slice_}")
 
 
 def check_structure_cache(entry: dict, struct_version: int, fp_fn) -> bool:
     """The shared freshness check for structure-fingerprint caches (the
-    backend's sharded mirror; the topo mirror once ported): O(1) when the
+    backend's sharded mirror, the topo mirror): O(1) when the
     entry was already validated — or already known stale — at this
     struct_version, at most one O(edges) fingerprint hash per structural
     mutation otherwise. Mutates ``entry['validated_at']``/``['missed_at']``."""
@@ -87,6 +102,10 @@ def check_structure_cache(entry: dict, struct_version: int, fp_fn) -> bool:
 
 
 class DeviceGraph:
+    MAX_MIRROR_DELTAS = 65536  # a longer delta log breaks: a rebuild is cheaper
+    MAX_PATCH_EDGES = 65536  # per add-delta; beyond this a rebuild wins
+    LAT_CHAIN_OUT_CAP = 65536  # union ids a sequenced lone-wave chain returns
+
     def __init__(self, node_capacity: int = 1024, edge_capacity: int = 4096, device=None):
         self.device = resolve_device(device)
         self.n_cap = _round_up_pow2(max(node_capacity, 16))
@@ -123,9 +142,28 @@ class DeviceGraph:
         # reads it to know whether its resident mesh copy is still current
         self.invalid_version = 0
         self._topo_mirror: Optional[dict] = None  # see build_topo_mirror
-        self.mirror_rebuilds = 0  # topo mirror builds
+        self.mirror_rebuilds = 0  # topo mirror builds (sync and async installs)
         self.mirror_bursts = 0  # bursts served by a mirror (topo or lat)
         self.lat_waves = 0  # unions served by the lat mirror
+        #: shape of the last lane burst: {"depth": stages, "dispatches": sweeps}
+        self.last_lanes_info: Optional[dict] = None
+        # structural deltas since the mirror was last coherent; None = no log
+        # (no mirror, or an unpatchable delta broke it: the fingerprint or a
+        # rebuild decides next)
+        self._mirror_deltas: Optional[list] = None
+        # the in-flight background re-level and its catch-up log
+        self._async_rebuild: Optional[dict] = None
+        self._rebuild_deltas: Optional[list] = None
+        # subscribers to the same ordered delta stream (the mesh mirrors)
+        self._aux_delta_logs: list = []
+        self.mirror_patches = 0  # patch applications (batches, not deltas)
+        self.mirror_patch_s = 0.0  # cumulative patch time
+        self.mirror_patch_host_s = 0.0  # numpy slot and level bookkeeping
+        self.mirror_patch_device_s = 0.0  # the device row scatters
+        # adaptive sweep passes: bursts sweep to a fixed point (passes=0)
+        # instead of the worst-case 1+n_viol; counted per adaptive burst
+        self.adaptive_passes = False
+        self.adaptive_stages = 0
 
     @classmethod
     def from_numpy_state(cls, state: dict, device=None) -> "DeviceGraph":
@@ -148,6 +186,51 @@ class DeviceGraph:
         g._dirty = True
         g._init_versions()
         return g
+
+    # ------------------------------------------------------------------ delta log
+    def register_aux_delta_log(self, cap: int = MAX_MIRROR_DELTAS) -> dict:
+        """Subscribe to the ordered structural-delta stream. Returns the log
+        dict ``{"deltas", "broken", "cap"}``: an overflowing log marks itself
+        broken and empties, and its owner rebuilds."""
+        log = {"deltas": [], "broken": False, "cap": cap}
+        self._aux_delta_logs.append(log)
+        return log
+
+    def drop_aux_delta_log(self, log: dict) -> None:
+        try:
+            self._aux_delta_logs.remove(log)
+        except ValueError:
+            pass
+
+    def _logging_deltas(self) -> bool:
+        return ((self._topo_mirror is not None and self._mirror_deltas is not None)
+                or self._rebuild_deltas is not None or bool(self._aux_delta_logs))
+
+    def _record_mirror_delta(self, kind: str, payload) -> None:
+        """Append ``(kind, payload)`` to every live log: the aux logs, the
+        async rebuild's catch-up log (which breaks only on overflow:
+        patchability is judged at install against the new levels), and the
+        mirror's own log (None once broken; unbounded churn breaks it)."""
+        for log in self._aux_delta_logs:
+            if log["broken"]:
+                continue
+            if len(log["deltas"]) >= log["cap"]:
+                log["broken"] = True
+                log["deltas"] = []
+            else:
+                log["deltas"].append((kind, payload))
+        if self._rebuild_deltas is not None:
+            if len(self._rebuild_deltas) >= self.MAX_MIRROR_DELTAS:
+                self._rebuild_deltas = None
+            else:
+                self._rebuild_deltas.append((kind, payload))
+        d = self._mirror_deltas
+        if self._topo_mirror is None or d is None:
+            return
+        if len(d) >= self.MAX_MIRROR_DELTAS:
+            self._mirror_deltas = None
+            return
+        d.append((kind, payload))
 
     # ------------------------------------------------------------------ build
     def add_nodes(self, count: int) -> np.ndarray:
@@ -196,6 +279,16 @@ class DeviceGraph:
         else:
             self._dirty = True
         self._struct_version += 1
+        if self._logging_deltas():
+            # only edges live at append exist for the mirror; each carries its
+            # CAPTURED epoch, so an edge whose dependent bumps before the
+            # patch stays dead in the lat mirror
+            ep = np.array(dst_epoch, dtype=np.int32)
+            live = ep == self._h_node_epoch[dst]
+            if live.all():
+                self._record_mirror_delta("add", (src.copy(), dst.copy(), ep))
+            elif live.any():
+                self._record_mirror_delta("add", (src[live].copy(), dst[live].copy(), ep[live]))
 
     def bump_epochs(self, node_ids: np.ndarray) -> None:
         """Nodes recomputed: new epoch ⇒ their stale in-edges go dead, and
@@ -209,6 +302,8 @@ class DeviceGraph:
         self._h_invalid[node_ids] = False
         self._struct_version += 1
         self.invalid_version += 1
+        if self._logging_deltas():
+            self._record_mirror_delta("bump", node_ids.copy())
         if self._g is not None and not self._dirty:
             ids = self._upload(node_ids).long()
             self._g.node_epoch.index_add_(
@@ -382,7 +477,7 @@ class DeviceGraph:
             # out-of-contract seed ids (unallocated slots) only the dense
             # path can represent: those bursts fall through to it
             if not len(flat) or (flat.min() >= 0 and flat.max() < m["n_nodes"]):
-                if 0 < len(flat) <= self.LAT_SEED_MAX:
+                if m["lat"] is not None and 0 < len(flat) <= self.LAT_SEED_MAX:
                     res = self._run_lat_union(m["lat"], flat)
                     if res is not None:
                         return res
@@ -414,12 +509,11 @@ class DeviceGraph:
     # ------------------------------------------------------------------ topo and lat mirrors
     def _live_edge_fingerprint(self):
         """(live src, live dst, fingerprint) of the CURRENT live edge set
-        (epoch-matched edges only). The fingerprint covers each live edge's
-        captured epoch too, which the lat mirror's slots carry: a recompute
-        that recaptures the same edges at new epochs changes it, as does any
-        append of a live edge, epoch bump that kills an in-edge, or node
-        allocation; ``compact`` (dead edges only) does not. (JAX hashes the
-        ids alone and keeps the lat slots current through its patch log.)"""
+        (epoch-matched edges only), hashing ``n_nodes`` and the live ids as
+        the JAX package does: an append, an epoch bump that kills an
+        in-edge, or a node allocation changes it; ``compact`` (dead edges
+        only) does not. A recapture of the same edges at new epochs does not
+        change it either: the patch log keeps the lat slots current."""
         m = self.n_edges
         live = self._h_node_epoch[self._h_edge_dst[:m]] == self._h_edge_dst_epoch[:m]
         src = self._h_edge_src[:m][live]
@@ -428,31 +522,271 @@ class DeviceGraph:
         h.update(np.int64(self.n_nodes).tobytes())
         h.update(src.tobytes())
         h.update(dst.tobytes())
-        h.update(self._h_edge_dst_epoch[:m][live].tobytes())
         return src, dst, h.digest()
 
     def _mirror_valid(self) -> bool:
         """Is the built mirror usable RIGHT NOW? O(1) at a structure version
-        already validated (or known stale); otherwise one fingerprint check
-        per structural change. A stale mirror stays stale until
-        :meth:`build_topo_mirror` runs again (no patch log in the port)."""
+        already validated (or known stale). A structural change first tries
+        the patch path (:meth:`_try_patch_mirror`); only with a broken delta
+        log does the O(edges) fingerprint decide, and a patched mirror (its
+        fingerprint shed) then stays stale until it is rebuilt."""
         m = self._topo_mirror
         if m is None:
+            return False
+        if m["validated_at"] == self._struct_version:
+            return True
+        if self._mirror_deltas is not None:
+            return self._try_patch_mirror(m)
+        if m["fp"] is None:
+            m["missed_at"] = self._struct_version
             return False
         return check_structure_cache(
             m, self._struct_version, lambda: self._live_edge_fingerprint()[2]
         )
+
+    def _break_mirror_deltas(self) -> bool:
+        """Break the delta log. The lat mirror goes too: a broken log may
+        have been applied to its host tables in part, and a lat carried
+        across a rebuild would then miss live edges."""
+        self._mirror_deltas = None
+        m = self._topo_mirror
+        if m is not None:
+            m["missed_at"] = self._struct_version
+            m["lat"] = None
+        return False
+
+    def _try_patch_mirror(self, m: dict) -> bool:
+        """Apply the recorded structural deltas to the topo mirror and its
+        lat mirror IN PLACE, vectorized per delta payload. Patchable:
+
+        - ``bump v``: v's in-edges die → clear v's topo in-row (levels only
+          lose constraints); the lat mirror needs nothing (its slot epochs
+          stop matching). A cleared row retires the level violations it
+          carried;
+        - ``add u→v`` with both known to the mirror and a free slot in v's
+          in-row (and u's lat out-row). A level-violating add (``level(u) >=
+          level(v)`` in the frozen order) costs one more sweep pass each:
+          the mirror runs ``1 + n_viol`` passes (or the adaptive sweep).
+          Past 3 violations a background re-level starts; past 8 the log
+          breaks.
+
+        Anything else (an edge touching a node born after the build, an
+        in-degree overflow past ``k + PATCH_SLACK``, a batch over
+        ``MAX_PATCH_EDGES``) breaks the log: bursts take the dense path until
+        :meth:`build_topo_mirror` rebuilds. A full lat out-row drops only
+        the lat mirror. Host tables patch per delta, then each mirror gets
+        one row scatter per call. Returns True (the mirror is valid)."""
+        deltas = self._mirror_deltas
+        if not deltas:
+            # struct_version moved without mirror-visible deltas (add_nodes,
+            # compact): seeds in unknown nodes fall back per burst
+            m["validated_at"] = self._struct_version
+            return True
+        t0 = time.perf_counter()
+        dev_s0 = self.mirror_patch_device_s
+        h = m["h_in_src"]
+        inv_perm = m["inv_perm"]
+        n_tot = m["n_tot"]
+        n_known = m["n_nodes"]
+        ls = m["level_starts_arr"]
+        changed_parts: list = []
+        lat = m.get("lat")
+        lat_changed_parts: list = []
+        # per-row violating sources: a bump that clears a row RETIRES them,
+        # so bump + recapture cycles recount instead of ratcheting n_viol
+        viol_by_row: Dict[int, set] = m.setdefault("viol_by_row", {})
+        n_viol = int(m.get("n_viol", 0))
+        mutated = False
+
+        def _break_patched():
+            if mutated:
+                # the host tables diverged from the untouched device tables:
+                # the build fingerprint must never revalidate them
+                m["fp"] = None
+            return self._break_mirror_deltas()
+
+        for kind, payload in deltas:
+            if kind == "bump":
+                v = np.asarray(payload, dtype=np.int64)
+                v = v[v < n_known]  # born after the build: no mirrored in-edges
+                if v.size == 0:
+                    continue
+                rows = inv_perm[v]
+                h[rows, :] = n_tot
+                changed_parts.append(rows)
+                mutated = True
+                if viol_by_row:
+                    held = np.fromiter(viol_by_row.keys(), dtype=np.int64, count=len(viol_by_row))
+                    for row in np.intersect1d(rows, held):
+                        n_viol -= len(viol_by_row.pop(int(row)))
+                continue
+            src_a, dst_a, ep_a = payload  # "add"
+            if len(src_a) > self.MAX_PATCH_EDGES:
+                return _break_patched()
+            u64 = np.asarray(src_a, dtype=np.int64)
+            v64 = np.asarray(dst_a, dtype=np.int64)
+            if u64.size and (int(u64.max()) >= n_known or int(v64.max()) >= n_known):
+                return _break_patched()
+            if lat is not None:
+                lat = self._patch_lat_add_batch(m, lat, u64, v64, np.asarray(ep_a),
+                                                lat_changed_parts)
+            ru = inv_perm[u64]
+            rv = inv_perm[v64]
+            # edges already present are closure-identical duplicates
+            present = (h[rv] == ru[:, None]).any(axis=1)
+            ru, rv = ru[~present], rv[~present]
+            if ru.size == 0:
+                continue
+            # in-batch dedup by (rv, ru); the sort groups edges by row
+            key = rv * np.int64(n_tot + 1) + ru
+            order = np.argsort(key, kind="stable")
+            ku = key[order]
+            first = np.ones(len(ku), dtype=bool)
+            first[1:] = ku[1:] != ku[:-1]
+            ru, rv = ru[order][first], rv[order][first]
+            # rank within each row's group → the rank-th free slot
+            idx = np.arange(len(rv))
+            grp_start = np.ones(len(rv), dtype=bool)
+            grp_start[1:] = rv[1:] != rv[:-1]
+            rank = idx - np.maximum.accumulate(np.where(grp_start, idx, 0))
+            free_cum = (h[rv] == n_tot).cumsum(axis=1)
+            need = rank + 1
+            if (free_cum[:, -1] < need).any():
+                return _break_patched()  # in-degree overflow past k + slack
+            slot = (free_cum == need[:, None]).argmax(axis=1)
+            # level check: violations pay extra passes, capped
+            lu = np.searchsorted(ls, ru, side="right") - 1
+            lv = np.searchsorted(ls, rv, side="right") - 1
+            viol = lu >= lv
+            nv = int(viol.sum())
+            if nv:
+                n_viol += nv
+                if n_viol > 3 and self._async_rebuild is None:
+                    self.start_topo_mirror_rebuild(k=m["k"], cap=m["cap"])
+                if n_viol > 8:
+                    return _break_patched()
+                for r_, u_ in zip(rv[viol], ru[viol]):
+                    viol_by_row.setdefault(int(r_), set()).add(int(u_))
+            h[rv, slot] = ru
+            changed_parts.append(rv)
+            mutated = True
+        t_dev0 = time.perf_counter()
+        rows = np.unique(np.concatenate(changed_parts)) if changed_parts else None
+        lat_rows = (np.unique(np.concatenate(lat_changed_parts))
+                    if lat is not None and lat_changed_parts else None)
+        if rows is not None and lat_rows is not None:
+            self._scatter_mirror_and_lat_rows(m, rows, n_tot, lat, lat_rows)
+        elif rows is not None:
+            self._scatter_mirror_rows(m, rows, n_tot)
+        elif lat_rows is not None:
+            self._scatter_lat_rows(lat, lat_rows)
+        self.mirror_patch_device_s += time.perf_counter() - t_dev0
+        if n_viol != int(m.get("n_viol", 0)):
+            m["n_viol"] = n_viol
+            m["passes"] = 0 if self.adaptive_passes else 1 + n_viol
+        self._mirror_deltas = []
+        m["validated_at"] = self._struct_version
+        m["fp"] = None  # the build-time fingerprint no longer describes the tables
+        self.mirror_patches += 1
+        dt = time.perf_counter() - t0
+        self.mirror_patch_s += dt
+        self.mirror_patch_host_s += max(dt - (self.mirror_patch_device_s - dev_s0), 0.0)
+        return True
+
+    def _scatter_mirror_rows(self, m, rows: np.ndarray, n_tot: int) -> None:
+        """Copy the patched topo in-rows ``rows`` (unique) from the host
+        table into the device tables, whole rows, with their slot epochs
+        (live ⇔ 0, pad ⇔ -1). No width quantization: PyTorch compiles
+        nothing per shape."""
+        new_rows = m["h_in_src"][rows]
+        idx = self._upload(rows.astype(np.int64))
+        g = m["garrays"]
+        g.in_src[idx] = self._upload(new_rows)
+        g.edge_epoch[idx] = self._upload(np.where(new_rows != n_tot, 0, -1).astype(np.int32))
+
+    def _scatter_mirror_and_lat_rows(self, m, rows: np.ndarray, n_tot: int, lat: dict,
+                                     lat_rows: np.ndarray) -> None:
+        """Both mirrors' patched rows (JAX fuses the two scatters into one
+        dispatch to save a relay round trip; here they are two)."""
+        self._scatter_mirror_rows(m, rows, n_tot)
+        self._scatter_lat_rows(lat, lat_rows)
+
+    def _scatter_lat_rows(self, lat: dict, rows: np.ndarray) -> None:
+        idx = self._upload(rows.astype(np.int64))
+        lat["ell_dst"][idx] = self._upload(lat["h_ell_dst"][rows])
+        lat["ell_epoch"][idx] = self._upload(lat["h_ell_epoch"][rows])
+
+    def _patch_lat_add_batch(self, m: dict, lat: dict, u64, v64, ep_a, lat_changed_parts: list):
+        """The lat mirror's half of an add delta: one new out-slot per (u,
+        v, captured epoch), duplicates dropped, free slots assigned by rank
+        within the row. A full out-row or an unknown node drops ONLY the
+        lat mirror (lone waves fall back to the sweep). Returns the lat
+        dict, or None once dropped."""
+        if u64.size == 0:
+            return lat
+        if int(u64.max()) >= lat["n_real"] or int(v64.max()) >= lat["n_real"]:
+            m["lat"] = None
+            return None
+        hd, he = lat["h_ell_dst"], lat["h_ell_epoch"]
+        ln_tot = lat["n_tot"]
+        ep = np.asarray(ep_a, dtype=np.int64)
+        # slots already live-present with the same captured epoch
+        dup = ((hd[u64] == v64[:, None]) & (he[u64] == ep[:, None])).any(axis=1)
+        u, v, e = u64[~dup], v64[~dup], ep[~dup]
+        if u.size == 0:
+            return lat
+        order = np.lexsort((e, v, u))  # in-batch dedup; groups by out-row
+        u, v, e = u[order], v[order], e[order]
+        first = np.ones(len(u), dtype=bool)
+        first[1:] = (u[1:] != u[:-1]) | (v[1:] != v[:-1]) | (e[1:] != e[:-1])
+        u, v, e = u[first], v[first], e[first]
+        idx = np.arange(len(u))
+        grp_start = np.ones(len(u), dtype=bool)
+        grp_start[1:] = u[1:] != u[:-1]
+        rank = idx - np.maximum.accumulate(np.where(grp_start, idx, 0))
+        free_cum = (hd[u] == ln_tot).cumsum(axis=1)
+        need = rank + 1
+        if (free_cum[:, -1] < need).any():
+            m["lat"] = None
+            return None
+        slot = (free_cum == need[:, None]).argmax(axis=1)
+        hd[u, slot] = v
+        he[u, slot] = e
+        lat_changed_parts.append(u)
+        return lat
+
+    def set_adaptive_passes(self, on: bool = True) -> None:
+        """Sweep bursts to a fixed point (``passes=0``: unseeded passes until
+        one changes nothing) instead of the worst-case ``1 + n_viol`` a
+        patched mirror carries. A built mirror's pass count updates in place."""
+        self.adaptive_passes = bool(on)
+        m = self._topo_mirror
+        if m is not None:
+            m["passes"] = 0 if on else 1 + int(m.get("n_viol", 0))
+
+    def _count_adaptive(self, passes: int) -> None:
+        """Count one adaptive-mode burst (``passes <= 0``)."""
+        if passes > 0:
+            return
+        self.adaptive_stages += 1
+        global_metrics().counter(
+            "fusion_wave_adaptive_stages_total",
+            help="mirror bursts that swept to a fixed point instead of a pinned "
+            "worst-case pass count",
+        ).inc()
 
     def build_topo_mirror(self, k: int = 4, cap: int = 65536, force: bool = False) -> dict:
         """Build (or refresh) the topo mirror of the LIVE edge set: the
         level-ordered in-ELL (``ops/topo_wave.py``, ``k`` in-slots plus
         ``PATCH_SLACK``) that runs a whole burst in ONE depth-free sweep, and
         the lat mirror (the out-ELL of ``ops/ell_wave.py``, ``LAT_K`` plus
-        ``PATCH_SLACK``) for lone waves. Synchronous; rebuilt only when the
-        live-edge fingerprint changed (or ``force``). Bursts read and write
-        the dense device invalid words directly, so the states never
-        diverge; epoch checks inside the mirror are unneeded because it holds
-        exactly the live edges."""
+        ``PATCH_SLACK``) for lone waves. Patch-or-validate first: a mirror
+        whose deltas patch, or whose fingerprint still matches, is returned
+        as it is. ``force`` re-levels (n_viol back to 0, one pass), carrying
+        a patched-current lat mirror across when no delta is pending.
+        Synchronous; :meth:`start_topo_mirror_rebuild` is the background
+        form. Bursts read and write the dense device invalid words directly,
+        so the states never diverge."""
         cached = self._topo_mirror
         same = cached is not None and cached["cap"] == cap and cached["k"] == k
         if not force and same and self._mirror_valid():
@@ -460,15 +794,38 @@ class DeviceGraph:
         src, dst, fp = self._live_edge_fingerprint()
         if not force and same and cached["fp"] == fp:
             cached["validated_at"] = self._struct_version
-            cached.pop("missed_at", None)
+            self._mirror_deltas = []
             return cached
+        self._mirror_cache_path(fp, k)
+        # the lat mirror is level-independent: a re-level carries a live,
+        # patched-current one, unless a delta is pending (it is in the new
+        # edge snapshot, not in the lat tables) or nodes were added
+        carried_lat = None
+        if (cached is not None and self._mirror_deltas == [] and cached.get("lat") is not None
+                and cached["lat"]["n_real"] == self.n_nodes):
+            carried_lat = cached["lat"]
         topo = build_topo_graph(src, dst, self.n_nodes, k=k, slack=self.PATCH_SLACK)
-        lat = widen_ell(build_ell(src, dst, self.n_nodes, k=self.LAT_K), self.PATCH_SLACK)
-        return self._install_topo_mirror(topo, lat, k, cap, fp)
+        lat = carried_lat if carried_lat is not None else widen_ell(
+            build_ell(src, dst, self.n_nodes, k=self.LAT_K), self.PATCH_SLACK)
+        self._install_topo_mirror(topo, k, cap, fp, self._struct_version, self.n_nodes, lat=lat)
+        self._mirror_deltas = []  # a fresh log: the mirror is coherent now
+        return self._topo_mirror
 
-    def _install_topo_mirror(self, topo, lat, k: int, cap: int, fp) -> dict:
-        """Upload a built ``TopoGraph`` and its lat ``EllGraph`` as the
-        active mirror, valid at the current structure version."""
+    def _mirror_cache_path(self, fp, k: int):
+        """The disk mirror cache (JAX: keyed by the fingerprint under
+        ``FUSION_MIRROR_CACHE``) is not ported: None while that variable is
+        unset, and a build with it set raises rather than ignore it."""
+        if os.environ.get("FUSION_MIRROR_CACHE"):
+            _not_ported("the disk mirror cache (FUSION_MIRROR_CACHE)", "A.4 (disk mirror cache)")
+        return None
+
+    def _install_topo_mirror(self, topo, k: int, cap: int, fp, validated_at: int, n_nodes: int,
+                             lat=None) -> dict:
+        """Upload a built ``TopoGraph`` as the active mirror, with the host
+        tables the patch path splices, valid at ``validated_at`` (the
+        current version for a synchronous build, the snapshot's for an async
+        install, whose catch-up deltas bring it forward). ``lat`` is a
+        carried lat dict, an ``EllGraph`` to materialize, or None."""
         self.mirror_rebuilds += 1
         n_tot = topo.n_tot
         node_epoch0 = torch.zeros(n_tot + 1, dtype=torch.int32, device=self.device)
@@ -477,8 +834,8 @@ class DeviceGraph:
             "fp": fp,
             "cap": cap,
             "k": k,
-            "validated_at": self._struct_version,
-            "n_nodes": self.n_nodes,
+            "validated_at": validated_at,
+            "n_nodes": n_nodes,
             "n_tot": n_tot,
             "inv_perm": topo.inv_perm,
             "garrays": topo_graph_arrays(topo, self.device),
@@ -488,23 +845,123 @@ class DeviceGraph:
             "perm_clipped": self._upload(np.clip(topo.perm, 0, self.n_cap).astype(np.int32)),
             "level_starts": topo.level_starts,
             "levels": len(topo.level_starts) - 1,
-            "lat": self._materialize_lat(lat),
+            # the patch path's host state: slot occupancy and row → level
+            "h_in_src": topo.in_src.copy(),
+            "level_starts_arr": np.asarray(topo.level_starts, dtype=np.int64),
+            "passes": 0 if self.adaptive_passes else 1,
+            "lat": (lat if isinstance(lat, dict)
+                    else self._materialize_lat(lat) if lat is not None else None),
         }
         return self._topo_mirror
 
-    def _materialize_lat(self, lat) -> dict:
+    def _materialize_lat(self, lat, node_epoch_dev=None, h_node_epoch=None) -> dict:
         """Device half of the lat mirror: upload the out-ELL id table and
-        derive each slot's captured epoch on the device from the resident
-        epochs (the edge snapshot and the epochs are of the same moment)."""
+        derive each slot's captured epoch from epochs of the SAME moment as
+        the edge snapshot (the live ones for a synchronous build; an async
+        install passes the copies taken when its rebuild started, so a node
+        bumped since then shows the epoch mismatch of a dead edge). Keeps
+        host copies of both tables for the patch path."""
         g = self.device_arrays()
+        if node_epoch_dev is None:
+            node_epoch_dev = g.node_epoch
+        if h_node_epoch is None:
+            h_node_epoch = self._h_node_epoch
         ell_dst = self._upload(lat.ell_dst)
+        h_epoch = np.where(lat.ell_dst < lat.n_real,
+                           h_node_epoch[np.clip(lat.ell_dst, 0, len(h_node_epoch) - 1)],
+                           0).astype(np.int32)
+        if node_epoch_dev.shape[0] == self.n_cap + 1:
+            ell_epoch = ell_live_epoch_init(lat.n_real, self.n_cap)(ell_dst, node_epoch_dev)
+        else:  # capacity grew since the snapshot: pay the upload
+            ell_epoch = self._upload(h_epoch)
         return {
             "n_tot": lat.n_tot,
             "n_real": lat.n_real,
             "k": lat.k,
             "ell_dst": ell_dst,
-            "ell_epoch": ell_live_epoch_init(lat.n_real, self.n_cap)(ell_dst, g.node_epoch),
+            "ell_epoch": ell_epoch,
+            "h_ell_dst": lat.ell_dst.copy(),
+            "h_ell_epoch": h_epoch,
         }
+
+    def start_topo_mirror_rebuild(self, k: int = 4, cap: int = 65536) -> bool:
+        """Re-level the mirror in a BACKGROUND thread while bursts keep
+        riding the current (patched, maybe multi-pass) one. The worker does
+        host work only (``build_topo_graph``, and ``build_ell`` +
+        ``widen_ell`` when the lat mirror cannot be carried); the uploads
+        happen in :meth:`poll_topo_mirror_rebuild` on the calling thread.
+        Deltas recorded meanwhile catch the fresh mirror up at install.
+        Returns False if a rebuild is already in flight."""
+        if self._async_rebuild is not None:
+            return False
+        src, dst, fp = self._live_edge_fingerprint()
+        m = self._topo_mirror
+        state = {
+            "k": k,
+            "cap": cap,
+            "fp": fp,
+            "snap_version": self._struct_version,
+            "n_nodes": self.n_nodes,
+            "rebuilds_at_start": self.mirror_rebuilds,
+            "result": None,
+            "result_lat": None,
+            # a live, patched-current lat is carried instead of rebuilt
+            "need_lat": not (m is not None and m.get("lat") is not None
+                             and self._mirror_deltas == []
+                             and m["lat"]["n_real"] == self.n_nodes),
+            "error": None,
+            # the epochs of the snapshot's moment: bump_epochs adds into the
+            # device tensor in place, so the snapshot is a copy
+            "node_epoch_dev": self.device_arrays().node_epoch.clone(),
+            "h_node_epoch": self._h_node_epoch.copy(),
+        }
+
+        def work():
+            try:
+                state["result"] = build_topo_graph(src, dst, state["n_nodes"], k=k,
+                                                   slack=self.PATCH_SLACK)
+                if state["need_lat"]:
+                    state["result_lat"] = widen_ell(
+                        build_ell(src, dst, state["n_nodes"], k=self.LAT_K), self.PATCH_SLACK)
+            except Exception as e:  # noqa: BLE001 — surfaced at poll
+                state["error"] = e
+
+        self._rebuild_deltas = []
+        t = threading.Thread(target=work, name="topo-mirror-rebuild", daemon=True)
+        state["thread"] = t
+        self._async_rebuild = state
+        t.start()
+        return True
+
+    def poll_topo_mirror_rebuild(self) -> bool:
+        """Install a finished background rebuild (no-op while it runs).
+        Returns True when a fresh mirror was installed by this call. A
+        snapshot that a synchronous rebuild superseded is discarded."""
+        st = self._async_rebuild
+        if st is None or st["thread"].is_alive():
+            return False
+        self._async_rebuild = None
+        catchup, self._rebuild_deltas = self._rebuild_deltas, None
+        if st["error"] is not None:
+            log.warning("async mirror rebuild failed: %s", st["error"])
+            return False
+        if self.mirror_rebuilds != st["rebuilds_at_start"]:
+            return False
+        old_m = self._topo_mirror
+        old_lat = old_m.get("lat") if old_m is not None else None
+        self._install_topo_mirror(st["result"], st["k"], st["cap"], st["fp"],
+                                  st["snap_version"], st["n_nodes"])
+        if st["result_lat"] is not None:
+            self._topo_mirror["lat"] = self._materialize_lat(
+                st["result_lat"], st["node_epoch_dev"], st["h_node_epoch"])
+        elif old_lat is not None and catchup is not None and old_lat["n_real"] == st["n_nodes"]:
+            # carried across the re-level; the catch-up replay re-applies its
+            # deltas, which the duplicate checks make no-ops
+            self._topo_mirror["lat"] = old_lat
+        # the deltas since the snapshot bring the fresh mirror forward; a
+        # broken catch-up log leaves it stale: dense until the next rebuild
+        self._mirror_deltas = catchup
+        return True
 
     def _run_lat_union(self, lat: dict, flat_ids: np.ndarray):
         """Small union wave on the lat mirror. Returns (count, newly real
@@ -529,56 +986,142 @@ class DeviceGraph:
             self._h_invalid[newly] = True
         return count, newly
 
-    def _run_mirror_union(self, flat_ids: np.ndarray):
-        """A union burst as one topo sweep: gate (dense-BFS blocking through
-        the sweep's epochs) → ``run_topo_sweep_passes`` → finish (count,
-        compact, write back into the dense words)."""
+    def run_waves_union_seq(self, seed_id_lists: Sequence[Sequence[int]]):
+        """M independent union waves SEQUENCED on the lat mirror: wave ``i``
+        sees waves ``< i``'s commits, so the final state and per-wave counts
+        equal M :meth:`run_waves_union` calls. Waves that overflow the lat
+        caps re-run on the topo sweep AFTER the chain (their counts reflect
+        that order). Without a valid lat mirror the call is a host loop of
+        :meth:`run_waves_union`. Returns (counts int64[M], union newly ids)."""
+        M = len(seed_id_lists)
+        if M == 0:
+            return np.zeros(0, dtype=np.int64), np.empty(0, np.int32)
+
+        def _loop_fallback():
+            counts = np.zeros(M, dtype=np.int64)
+            parts = []
+            for i, s in enumerate(seed_id_lists):
+                counts[i], ids = self.run_waves_union([s])
+                parts.append(ids)
+            return counts, np.concatenate(parts) if parts else np.empty(0, np.int32)
+
+        if not self._mirror_valid():
+            return _loop_fallback()
         m = self._topo_mirror
-        n_tot = m["n_tot"]
+        lat = m.get("lat")
+        m_nodes = m["n_nodes"]
+        if (lat is None
+                or any(len(s) == 0 or len(s) > self.LAT_SEED_MAX for s in seed_id_lists)
+                or any(not (0 <= int(i) < m_nodes) for s in seed_id_lists for i in s)):
+            return _loop_fallback()
+        n_tot = lat["n_tot"]
+        mat = np.full((M, self.LAT_SEED_MAX), n_tot, dtype=np.int32)
+        for i, s in enumerate(seed_id_lists):
+            mat[i, : len(s)] = np.asarray(s, dtype=np.int32)
         g = self.device_arrays()
-        garrays = m["garrays"]
-        new_ids = self._upload(m["inv_perm"][flat_ids].astype(np.int32))
-        node_epoch, seed_bits = topo_mirror_gate_step(n_tot)(
-            garrays.is_real, m["node_epoch0"], m["perm_clipped"], g.invalid, new_ids
-        )
-        # one pass: a freshly built mirror has no level-violating edges
-        state = run_topo_sweep_passes(m["level_starts"], garrays, seed_bits, node_epoch, 1)
-        _, count, out_ids, overflow = topo_mirror_finish_step(m["cap"], n_tot)(
-            garrays.is_real, m["perm_clipped"], g.invalid, state.invalid_bits
-        )
+        step = ell_live_union_chain_step(n_tot, lat["n_real"], self.n_cap, self.LAT_LCAP,
+                                         self.LAT_CAP, self.LAT_CHAIN_OUT_CAP)
+        _, counts, overs, out_ids, out_count, out_over = step(
+            lat["ell_dst"], lat["ell_epoch"], g.node_epoch, g.invalid, self._upload(mat))
+        self.mirror_bursts += 1
+        self.lat_waves += M
+        newly_ids = self._patch_host_invalid(out_count, out_ids.cpu().numpy(), out_over)
+        if overs.any():
+            # overflowed waves committed nothing in the chain: re-run each now
+            extra = []
+            for i in np.nonzero(overs)[0]:
+                counts[i], ids = self.run_waves_union([seed_id_lists[int(i)]])
+                extra.append(ids)
+            newly_ids = np.concatenate([newly_ids, *extra])
+        return counts, newly_ids
+
+    def _run_mirror_union(self, flat_ids: np.ndarray):
+        """A union burst as one topo sweep of the mirror's pass count:
+        gate (dense-BFS blocking through the sweep's epochs) → sweep ×
+        passes (adaptive at 0) → finish (count, compact, write back into
+        the dense words)."""
+        m = self._topo_mirror
+        g = self.device_arrays()
+        passes = m.get("passes", 1)
+        self._count_adaptive(passes)
+        _, count, out_ids, overflow = topo_mirror_fused_union_step(
+            m["level_starts"], m["cap"], m["n_tot"], passes
+        )(m["garrays"], m["node_epoch0"], m["perm_clipped"], g.invalid,
+          self._upload(m["inv_perm"][flat_ids].astype(np.int32)))
         self.mirror_bursts += 1
         return count, self._patch_host_invalid(count, out_ids.cpu().numpy(), overflow)
 
+    def run_waves_lanes(self, seed_id_lists: Sequence[Sequence[int]],
+                        max_words: int = 16) -> Tuple[np.ndarray, np.ndarray]:
+        """INDEPENDENT per-group cascades, 32 groups per packed word, one
+        topo-mirror sweep (of the mirror's pass count) per ``32*max_words``
+        groups: gate → sweep → :func:`~..ops.topo_wave.lane_finish`. Builds,
+        patches or revalidates the mirror itself.
+
+        Per-group semantics = a dense BFS from the graph's invalid state at
+        the chunk boundary (groups in a chunk are snapshot-independent: two
+        may both count a node; chunks apply in order). Returns (per-group
+        newly counts int64[B], the union's newly-invalid BOOL MASK over node
+        ids, ``n_cap + 1`` long). JAX fuses chunks past the first into a
+        device-side chain; here they are a loop, with the same results."""
+        m = self.build_topo_mirror()
+        n_tot = m["n_tot"]
+        B = len(seed_id_lists)
+        counts = np.zeros(B, dtype=np.int64)
+        union_mask = np.zeros(self.n_cap + 1, dtype=bool)
+        any_newly = False
+        chunk_size = 32 * max_words
+        for c0 in range(0, B, chunk_size):
+            chunk = seed_id_lists[c0 : c0 + chunk_size]
+            mat, words = pack_lane_matrix(chunk, pad_id=n_tot, n_valid=m["n_nodes"],
+                                          id_map=m["inv_perm"], base_index=c0)
+            g = self.device_arrays()
+            passes = m.get("passes", 1)
+            self._count_adaptive(passes)
+            _, lane_counts, union_count, newly_w = topo_mirror_fused_lanes_step(
+                m["level_starts"], n_tot, words, passes
+            )(m["garrays"], m["node_epoch0"], m["perm_clipped"], g.invalid, self._upload(mat))
+            self.mirror_bursts += 1
+            counts[c0 : c0 + len(chunk)] = lane_counts[: len(chunk)].cpu().numpy()
+            if int(union_count):
+                any_newly = True
+                newly = unpack_words_host(newly_w.cpu().numpy(), len(self._h_invalid))
+                self._h_invalid |= newly
+                union_mask |= newly
+        if any_newly:
+            self.invalid_version += 1
+        n_chunks = max(-(-B // chunk_size), 1)
+        self.last_lanes_info = {"depth": n_chunks, "dispatches": n_chunks}
+        return counts, union_mask
+
+    def run_waves_lanes_chain(self, stage_groups: Sequence[Sequence[Sequence[int]]],
+                              max_words: int = 16) -> Tuple[list, list]:
+        """``depth`` CONSECUTIVE lane bursts: stage ``i`` cascades against
+        the invalid state stages ``< i`` left. A synchronous walk of
+        :meth:`run_waves_lanes` over the stages, with JAX's results (JAX
+        fuses the stages into ``ceil(depth/8)`` device programs). Returns
+        (per-stage int64 counts, per-stage newly BOOL masks)."""
+        max_groups = max((len(s) for s in stage_groups), default=1)
+        if max_groups > 32 * max_words:
+            raise ValueError(f"a stage carries {max_groups} groups > 32*max_words="
+                             f"{32 * max_words}; chunk stages before chaining")
+        stage_counts, stage_masks = [], []
+        for stage in stage_groups:
+            c, mask = self.run_waves_lanes(stage, max_words=max_words)
+            stage_counts.append(c)
+            stage_masks.append(mask)
+        self.last_lanes_info = {"depth": len(stage_groups), "dispatches": len(stage_groups)}
+        return stage_counts, stage_masks
+
     # ------------------------------------------------------------------ later slices
-    def start_topo_mirror_rebuild(self, *args, **kwargs):
-        _not_ported("start_topo_mirror_rebuild")
-
-    def poll_topo_mirror_rebuild(self, *args, **kwargs):
-        _not_ported("poll_topo_mirror_rebuild")
-
-    def set_adaptive_passes(self, *args, **kwargs):
-        _not_ported("set_adaptive_passes")
-
-    def run_waves_union_seq(self, *args, **kwargs):
-        _not_ported("run_waves_union_seq")
-
-    def run_waves_lanes(self, *args, **kwargs):
-        _not_ported("run_waves_lanes")
-
-    def run_waves_lanes_chain(self, *args, **kwargs):
-        _not_ported("run_waves_lanes_chain")
-
     def dispatch_waves_lanes_chain(self, *args, **kwargs):
-        _not_ported("dispatch_waves_lanes_chain")
+        _not_ported("dispatch_waves_lanes_chain", "A.5 (the non-blocking lane chain)")
 
     def harvest_waves_lanes_chain(self, *args, **kwargs):
-        _not_ported("harvest_waves_lanes_chain")
+        _not_ported("harvest_waves_lanes_chain", "A.5 (the non-blocking lane chain)")
 
     def dispatch_waves_superround(self, *args, **kwargs):
-        _not_ported("dispatch_waves_superround")
-
-    def register_aux_delta_log(self, *args, **kwargs):
-        _not_ported("register_aux_delta_log")
+        _not_ported("dispatch_waves_superround", "A.5 (super-rounds of the resident live loop)")
 
     # ------------------------------------------------------------------ readback
     def invalid_mask(self) -> np.ndarray:

@@ -23,6 +23,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
@@ -51,8 +52,11 @@ KERNELS: Dict[str, tuple] = {
     }),
     # level_starts is a HOST int64 array; the last pointer a host int (launches made)
     "topo_sweep": ("topo_sweep.cu", {
-        "topo_sweep_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _I, _P,
-                              _P],
+        "topo_sweep_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _I,
+                              _P, _P],
+    }),
+    "lane_finish": ("lane_finish.cu", {
+        "lane_finish_launch": [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _P],
     }),
 }
 
@@ -179,7 +183,8 @@ def load_host(name: str) -> ctypes.CDLL:
         if cxx is None:
             raise RuntimeError(f"{name}: no host C++ compiler (g++) to build {source}")
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        # the pid and the thread: a background mirror rebuild may build it too
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         t0 = time.perf_counter()
         proc = subprocess.run([cxx, *HOST_FLAGS, "-o", str(tmp), str(src)],
                               capture_output=True, text=True, timeout=300)

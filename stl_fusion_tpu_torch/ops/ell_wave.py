@@ -2,7 +2,8 @@
 
 Port of ``stl_fusion_tpu/ops/ell_wave.py``: the host half (``EllGraph``,
 ``build_ell``, ``widen_ell``) and the lone-wave latency path
-(``build_ell_lat_wave``, ``ell_live_epoch_init``, ``ell_live_union_step``).
+(``build_ell_lat_wave``, ``ell_live_epoch_init``, ``ell_live_union_step``,
+``ell_live_union_chain_step``).
 
 **Host half.** Every node keeps at most ``k`` out-slots; a node with more
 dependents fans out through a k-ary tree of virtual nodes. The native
@@ -36,6 +37,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from .bitops import unpack_bits
 from .wave import _bit_at
 
 __all__ = [
@@ -46,6 +48,7 @@ __all__ = [
     "build_ell",
     "build_ell_lat_wave",
     "ell_live_epoch_init",
+    "ell_live_union_chain_step",
     "ell_live_union_step",
     "invalid_mask",
     "widen_ell",
@@ -385,5 +388,37 @@ def ell_live_union_step(n_tot: int, n_nodes: int, n_cap: int, lcap: int, cap: in
         bit = torch.where(newly, torch.bitwise_left_shift(torch.ones_like(acc), acc & 31), 0)
         g_invalid.index_add_(0, word, bit)
         return g_invalid, int(newly.sum()), acc, False
+
+    return step
+
+
+@functools.lru_cache(maxsize=8)
+def ell_live_union_chain_step(n_tot: int, n_nodes: int, n_cap: int, lcap: int, cap: int,
+                              out_cap: int):
+    """M independent lone waves SEQUENCED against the live state: wave ``i``
+    sees waves ``< i``'s commits, so the final state and per-wave counts
+    equal M :func:`ell_live_union_step` calls. JAX runs them as one
+    ``lax.scan`` program; here they are a loop over the same step. A wave
+    that overflows commits nothing and flags its slot (the caller re-runs
+    it on the topo sweep). Returns ``step(ell_dst, ell_epoch, node_epoch,
+    g_invalid, seed_mat[M, S]) -> (g_invalid, counts int64[M] host, overs
+    bool[M] host, out_ids int32[out_cap], out_count, out_over)``: the
+    union's newly ids ascending, -1-padded, with its count and overflow on
+    the host."""
+    core = ell_live_union_step(n_tot, n_nodes, n_cap, lcap, cap)
+
+    def step(ell_dst, ell_epoch, node_epoch, g_invalid, seed_mat):
+        g_invalid0 = g_invalid.clone()
+        m = int(seed_mat.shape[0])
+        counts = np.zeros(m, dtype=np.int64)
+        overs = np.zeros(m, dtype=bool)
+        for i in range(m):
+            _, counts[i], _, overs[i] = core(ell_dst, ell_epoch, node_epoch, g_invalid, seed_mat[i])
+        newly = unpack_bits(g_invalid & ~g_invalid0, n_cap + 1)
+        ids = torch.nonzero(newly).flatten().to(torch.int32)  # ascending
+        out_count = int(ids.shape[0])
+        out = torch.full((out_cap,), -1, dtype=torch.int32, device=g_invalid.device)
+        out[: min(out_count, out_cap)] = ids[:out_cap]
+        return g_invalid, counts, overs, out, out_count, out_count > out_cap
 
     return step

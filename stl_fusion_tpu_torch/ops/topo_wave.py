@@ -18,10 +18,18 @@ level k gathers, k ORs, a merge and a popcount. A CPU tensor takes the plain
 version; a CUDA tensor launches the kernel or raises.
 
 Unlike JAX, the sweep updates ``state.invalid_bits`` IN PLACE (at 10M rows
-and W=16 the state is 640 MB) and returns the same state.
+and W=16 the state is 640 MB) and returns the same state. Its optional
+``changed`` flag (one device int) is the stop test of the adaptive multi-pass
+sweep (:func:`_sweep_adaptive`).
 
 The mirror's gate and finish steps read and write the dense graph's invalid
-state as the port keeps it: packed int32 words (``ops/wave.py``).
+state as the port keeps it: packed int32 words (``ops/wave.py``). The lane
+burst's epilogue is the hand-written kernel :func:`lane_finish`
+(``csrc/lane_finish.cu``): per-lane popcounts of the newly bits, the union,
+and its commit into the packed words, in one pass; its plain version is
+:func:`lane_finish_plain`. The fused union, lanes and chain steps keep their
+JAX names and are plain compositions of gate, sweep and finish: JAX fuses
+them to save relay round trips, which the port does not have.
 """
 from __future__ import annotations
 
@@ -44,11 +52,18 @@ __all__ = [
     "TopoState",
     "build_topo_graph",
     "build_topo_wave32",
+    "lane_finish",
+    "lane_finish_plain",
     "launches",
     "run_topo_sweep_passes",
     "topo_graph_arrays",
     "topo_init_state",
+    "topo_mirror_finish_lanes_step",
     "topo_mirror_finish_step",
+    "topo_mirror_fused_lanes_chain_step",
+    "topo_mirror_fused_lanes_step",
+    "topo_mirror_fused_union_step",
+    "topo_mirror_gate_lanes_step",
     "topo_mirror_gate_step",
     "topo_seeds_to_bits",
     "topo_sweep",
@@ -58,6 +73,8 @@ __all__ = [
 
 #: topo_sweep kernel launches since the last reset (one per non-empty level per sweep)
 launches = 0
+#: lane_finish kernel launches since the last reset (one per lane burst)
+lane_finish_launches = 0
 
 #: largest ``k`` the kernel takes (``csrc/topo_sweep.cu``: kMaxK)
 MAX_K = 8
@@ -252,11 +269,13 @@ def _plain_level(inv, garrays: TopoGraphArrays, node_epoch, a: int, b: int) -> N
 
 
 def topo_sweep_plain(level_starts, garrays: TopoGraphArrays, seed_bits: Optional[torch.Tensor],
-                     state: TopoState, start_level: int = 1):
+                     state: TopoState, start_level: int = 1,
+                     changed: Optional[torch.Tensor] = None):
     """Plain PyTorch version of :func:`topo_sweep`, level by level as the
     JAX ``_topo_sweep_impl``: per level the effective in-rows (a dead edge
     reads the null row), a ``[rows, k, W]`` gather OR-folded over k, and
-    the merge. Updates ``state.invalid_bits`` in place."""
+    the merge. Updates ``state.invalid_bits`` in place; ``changed[0]`` is
+    set to 1 when any row differs from its state before the sweep."""
     n_tot, is_real = garrays.in_src.shape[0] - 1, garrays.is_real
     inv = _as_rows(state.invalid_bits)
     before = inv.clone()
@@ -267,6 +286,8 @@ def topo_sweep_plain(level_starts, garrays: TopoGraphArrays, seed_bits: Optional
         a, b = level_starts[l], level_starts[l + 1]
         if a < b:
             _plain_level(inv, garrays, state.node_epoch, a, b)
+    if changed is not None and bool((inv != before).any()):
+        changed.fill_(1)
     newly = torch.where(is_real[:, None], inv & ~before, 0)
     counts = _popcount32(newly).sum(dim=0, dtype=torch.int64).to(torch.int32)
     return state, (counts[0] if state.invalid_bits.dim() == 1 else counts)
@@ -277,7 +298,7 @@ def _starts_array(level_starts: Tuple[int, ...]) -> np.ndarray:
     return np.asarray(level_starts, dtype=np.int64)
 
 
-def _check_sweep(level_starts, garrays, seed_bits, state, start_level):
+def _check_sweep(level_starts, garrays, seed_bits, state, start_level, changed=None):
     in_src, edge_epoch, is_real = garrays
     node_epoch, inv = state
     device = inv.device
@@ -309,23 +330,28 @@ def _check_sweep(level_starts, garrays, seed_bits, state, start_level):
         raise ValueError("topo_sweep: level_starts must ascend from 0 to at most n_tot")
     if not 0 <= start_level:
         raise ValueError("topo_sweep: start_level must be >= 0")
+    if changed is not None and (changed.dtype != torch.int32 or changed.shape != (1,)
+                                or changed.device != device):
+        raise ValueError("topo_sweep: changed must be an int32[1] tensor on the same device")
 
 
 def topo_sweep(level_starts, garrays: TopoGraphArrays, seed_bits: Optional[torch.Tensor],
-               state: TopoState, start_level: int = 1):
+               state: TopoState, start_level: int = 1, changed: Optional[torch.Tensor] = None):
     """One sweep: ``invalid |= seeds`` (null row 0), then levels ascending
     from ``start_level``: each row ORs in the words of its live in-slots
     (slot epoch == the row's epoch), which lie in finished earlier levels.
     Returns (state, counts): int32 per-word counts of newly lit bits over
     real rows (a 0-d count for a 1-D state). ``seed_bits`` None means no
-    seeds. Updates ``state.invalid_bits`` IN PLACE. A CPU tensor takes
-    :func:`topo_sweep_plain`; a CUDA tensor launches
-    ``csrc/topo_sweep.cu`` (one launch per non-empty level) or raises."""
+    seeds. Updates ``state.invalid_bits`` IN PLACE. ``changed`` (int32[1],
+    optional) is set to 1 when any row, real or virtual, gained a bit; it
+    is never cleared here. A CPU tensor takes :func:`topo_sweep_plain`; a
+    CUDA tensor launches ``csrc/topo_sweep.cu`` (one launch per non-empty
+    level) or raises."""
     global launches
-    _check_sweep(level_starts, garrays, seed_bits, state, start_level)
+    _check_sweep(level_starts, garrays, seed_bits, state, start_level, changed)
     inv = state.invalid_bits
     if inv.device.type == "cpu":
-        return topo_sweep_plain(level_starts, garrays, seed_bits, state, start_level)
+        return topo_sweep_plain(level_starts, garrays, seed_bits, state, start_level, changed)
     if inv.device.type != "cuda":
         raise ValueError(f"topo_sweep: unsupported device {inv.device}")
     in_src, edge_epoch, is_real = garrays
@@ -343,8 +369,8 @@ def topo_sweep(level_starts, garrays: TopoGraphArrays, seed_bits: Optional[torch
         "topo_sweep", "topo_sweep_launch", in_src.data_ptr(), edge_epoch.data_ptr(),
         state.node_epoch.data_ptr(), is_real.data_ptr(),
         None if seed_bits is None else seed_bits.data_ptr(), inv.data_ptr(), counts.data_ptr(),
-        starts.ctypes.data, len(starts) - 1, start_level, k, w, n_tot, int(starts[-1]),
-        int(vec4), ctypes.addressof(made),
+        None if changed is None else changed.data_ptr(), starts.ctypes.data, len(starts) - 1,
+        start_level, k, w, n_tot, int(starts[-1]), int(vec4), ctypes.addressof(made),
     )
     launches += made.value
     return state, (counts[0] if inv.dim() == 1 else counts)
@@ -358,14 +384,33 @@ def topo_sweep_step(level_starts: Tuple[int, ...], start_level: int = 1):
 
 def run_topo_sweep_passes(level_starts, garrays, seed_bits, node_epoch, passes: int):
     """``passes`` chained sweeps from an all-valid state with ``node_epoch``
-    (only the first pass seeds; ``start_level`` 0). Returns the state."""
-    step = topo_sweep_step(level_starts, 0)
+    (only the first pass seeds; ``start_level`` 0), or the adaptive sweep
+    (:func:`_sweep_adaptive`) when ``passes <= 0``. Returns the state."""
     state = TopoState(node_epoch, torch.zeros_like(seed_bits))
+    if passes <= 0:
+        return _sweep_adaptive(level_starts, garrays, seed_bits, state)
+    step = topo_sweep_step(level_starts, 0)
     sb = seed_bits
     for _ in range(passes):
         state, _ = step(garrays, sb, state)
         sb = None
     return state
+
+
+def _sweep_adaptive(level_starts, garrays, seed_bits, state):
+    """The adaptive pass mode (``passes <= 0``): one seeded sweep, then
+    unseeded sweeps until one changes no row, real or virtual (JAX
+    ``_sweep_adaptive``: a ``lax.while_loop`` on ``(after != before).any()``).
+    The bits only grow under OR, so the loop ends, at the state any fixed
+    pass count at least the violation depth reaches. The kernel's
+    ``changed`` flag is read on the host once per pass. Returns the state."""
+    state, _ = topo_sweep(level_starts, garrays, seed_bits, state, 0)
+    changed = torch.zeros(1, dtype=torch.int32, device=state.invalid_bits.device)
+    while True:
+        changed.zero_()
+        state, _ = topo_sweep(level_starts, garrays, None, state, 0, changed=changed)
+        if not int(changed.item()):
+            return state
 
 
 def build_topo_wave32(graph: TopoGraph, words: int = 1, device=None):
@@ -427,3 +472,194 @@ def topo_mirror_finish_step(cap: int, n_tot: int):
         return g_invalid, count, out, count > cap
 
     return finish
+
+
+def topo_mirror_fused_union_step(level_starts: Tuple[int, ...], cap: int, n_tot: int,
+                                 passes: int = 1):
+    """The union burst: gate → sweep × ``passes`` (adaptive when ``passes
+    <= 0``) → finish. JAX fuses the three into one program to save relay
+    round trips; here it is their plain composition, with the same results.
+    Returns ``burst(garrays, node_epoch0, perm_clipped, g_invalid_words,
+    seed_new_ids) -> (g_invalid_words, count, ids int32[cap], overflow)``."""
+    level_starts = tuple(level_starts)
+
+    def burst(garrays: TopoGraphArrays, node_epoch0, perm_clipped, g_invalid, seed_new_ids):
+        node_epoch, seed_bits = topo_mirror_gate_step(n_tot)(
+            garrays.is_real, node_epoch0, perm_clipped, g_invalid, seed_new_ids)
+        state = run_topo_sweep_passes(level_starts, garrays, seed_bits, node_epoch, passes)
+        return topo_mirror_finish_step(cap, n_tot)(
+            garrays.is_real, perm_clipped, g_invalid, state.invalid_bits)
+
+    return burst
+
+
+# ------------------------------------------------------------------ lane bursts
+def topo_mirror_gate_lanes_step(n_tot: int, words: int):
+    """The lane burst's prologue: ``32*words`` independent command groups,
+    group ``l`` seeding word ``l // 32`` bit ``l % 32`` (lane 31 is the sign
+    bit). Blocked rows (already invalid in the dense state) get epoch -3, as
+    in the union gate; seeds conduct even when already invalid. Within a
+    lane the ids are unique and the lanes' bits are disjoint, so scattering
+    the seed bits by ``index_add_`` is the OR. Returns ``gate(is_real,
+    node_epoch0, perm_clipped, g_invalid_words, seed_new_ids int32[32*words,
+    S]) -> (node_epoch, seed_bits int32[n_tot+1, words])``; pad ids are
+    ``n_tot`` (the null row, zeroed)."""
+    W = words
+    L = 32 * W
+
+    def gate(is_real, node_epoch0, perm_clipped, g_invalid, seed_new_ids):
+        device = g_invalid.device
+        blocked = is_real & _bit_at(g_invalid, perm_clipped)
+        blocked[n_tot] = False
+        node_epoch = torch.where(blocked, -3, node_epoch0).to(torch.int32)
+        if seed_new_ids.shape[0] != L:
+            raise ValueError(f"lane gate: {seed_new_ids.shape[0]} seed rows for {L} lanes")
+        lanes = torch.arange(L, dtype=torch.int32, device=device)
+        bit_of = torch.bitwise_left_shift(torch.ones_like(lanes), lanes % 32)
+        flat = seed_new_ids.long() * W + (lanes // 32).long()[:, None]
+        vals = bit_of[:, None].expand(seed_new_ids.shape)
+        seed_bits = torch.zeros((n_tot + 1) * W, dtype=torch.int32, device=device)
+        seed_bits.index_add_(0, flat.reshape(-1), vals.reshape(-1))
+        seed_bits = seed_bits.view(n_tot + 1, W)
+        seed_bits[n_tot] = 0
+        return node_epoch, seed_bits
+
+    return gate
+
+
+def _lane_counts_blocked(newly_bits: torch.Tensor, W: int, block: int = 1 << 15) -> torch.Tensor:
+    """Per-lane popcounts of ``[rows, W]`` packed bits, a tile of ``block``
+    rows unpacked at a time (JAX ``_lane_counts_blocked``: unpacking the
+    whole ``[rows, W, 32]`` at once is 5.8G elements at 10M rows and W=16).
+    Returns int32[32*W]: lane ``l`` is word ``l // 32``, bit ``l % 32``."""
+    shifts = torch.arange(32, dtype=torch.int32, device=newly_bits.device)
+    acc = torch.zeros((W, 32), dtype=torch.int64, device=newly_bits.device)
+    for a in range(0, newly_bits.shape[0], block):
+        blk = newly_bits[a : a + block]
+        acc += ((blk[:, :, None] >> shifts) & 1).sum(dim=0)
+    return acc.reshape(W * 32).to(torch.int32)
+
+
+def lane_finish_plain(final_bits, is_real, perm_clipped, g_invalid):
+    """Plain PyTorch version of :func:`lane_finish` (JAX
+    ``topo_mirror_finish_lanes_step``): the newly bits (real rows whose node
+    was valid before the burst), their per-lane counts, the union rows, and
+    the union's commit into the dense words in place. Returns (lane_counts
+    int32[32*W], union_count int32 0-d, newly mask words)."""
+    fb = _as_rows(final_bits)
+    ok = is_real & ~_bit_at(g_invalid, perm_clipped)
+    newly_bits = torch.where(ok[:, None], fb, 0)
+    lane_counts = _lane_counts_blocked(newly_bits, fb.shape[1])
+    union = (newly_bits != 0).any(dim=1)
+    ids = perm_clipped[union]
+    newly = torch.zeros_like(g_invalid)
+    # each union id is unique and was clear: adding its bit is the OR
+    newly.index_add_(0, (ids >> 5).long(), torch.bitwise_left_shift(torch.ones_like(ids), ids & 31))
+    g_invalid |= newly
+    return lane_counts, union.sum(dtype=torch.int32), newly
+
+
+def lane_finish(final_bits, is_real, perm_clipped, g_invalid):
+    """The lane burst's epilogue. For each real row whose node's bit in the
+    dense packed words ``g_invalid`` is clear, its final bits are newly:
+    per-lane counts (int32[32*W], JAX's stack order), the union (rows with
+    any newly bit: their count, and their bits OR'ed into ``g_invalid`` IN
+    PLACE and into a fresh packed newly mask like it). Returns
+    (lane_counts, union_count int32 0-d, newly mask words). A CPU tensor
+    takes :func:`lane_finish_plain`; a CUDA tensor launches
+    ``csrc/lane_finish.cu`` or raises."""
+    global lane_finish_launches
+    fb = _as_rows(final_bits)
+    n, w = fb.shape
+    device = g_invalid.device
+    for name, t, dtype in (("final_bits", fb, torch.int32), ("is_real", is_real, torch.bool),
+                           ("perm_clipped", perm_clipped, torch.int32),
+                           ("g_invalid", g_invalid, torch.int32)):
+        if t.dtype != dtype or not t.is_contiguous() or t.device != device:
+            raise ValueError(f"lane_finish: {name} must be a contiguous {dtype} tensor on {device}")
+    if is_real.shape != (n,) or perm_clipped.shape != (n,) or g_invalid.dim() != 1:
+        raise ValueError("lane_finish: is_real and perm_clipped need one entry per row of "
+                         "final_bits, and g_invalid is 1-D")
+    if device.type == "cpu":
+        return lane_finish_plain(fb, is_real, perm_clipped, g_invalid)
+    if device.type != "cuda":
+        raise ValueError(f"lane_finish: unsupported device {device}")
+    if not (1 <= w <= 32 and w & (w - 1) == 0):
+        raise ValueError(f"lane_finish: the kernel takes W a power of two <= 32 words a row, "
+                         f"got {w}")
+    lane_counts = torch.zeros(32 * w, dtype=torch.int32, device=device)
+    union_count = torch.zeros(1, dtype=torch.int32, device=device)
+    newly = torch.zeros_like(g_invalid)
+    _build.launch("lane_finish", "lane_finish_launch", fb.data_ptr(), is_real.data_ptr(),
+                  perm_clipped.data_ptr(), g_invalid.data_ptr(), newly.data_ptr(),
+                  lane_counts.data_ptr(), union_count.data_ptr(), n, w)
+    lane_finish_launches += 1
+    return lane_counts, union_count[0], newly
+
+
+def topo_mirror_finish_lanes_step(n_tot: int, words: int):
+    """The lane burst's epilogue as JAX's step: ``finish(is_real,
+    perm_clipped, g_invalid_words, final_bits) -> (g_invalid_words,
+    lane_counts int32[32*words], union_count, newly mask words)``, through
+    :func:`lane_finish`."""
+
+    def finish(is_real, perm_clipped, g_invalid, final_bits):
+        lane_counts, union_count, newly = lane_finish(final_bits, is_real, perm_clipped, g_invalid)
+        return g_invalid, lane_counts, union_count, newly
+
+    return finish
+
+
+def _lanes_stage_body(level_starts, n_tot: int, W: int, passes: int,
+                      garrays: TopoGraphArrays, node_epoch0, perm_clipped, g_invalid,
+                      seed_new_ids):
+    """One lane-burst stage against ``g_invalid``: gate → sweep × passes
+    (adaptive when ``passes <= 0``) → finish. Returns (g_invalid_words,
+    lane_counts, union_count, newly mask words)."""
+    node_epoch, seed_bits = topo_mirror_gate_lanes_step(n_tot, W)(
+        garrays.is_real, node_epoch0, perm_clipped, g_invalid, seed_new_ids)
+    state = run_topo_sweep_passes(level_starts, garrays, seed_bits, node_epoch, passes)
+    del seed_bits  # as large as the state: let it go before the finish
+    return topo_mirror_finish_lanes_step(n_tot, W)(
+        garrays.is_real, perm_clipped, g_invalid, state.invalid_bits)
+
+
+def topo_mirror_fused_lanes_step(level_starts: Tuple[int, ...], n_tot: int, words: int,
+                                 passes: int = 1):
+    """The lane burst: gate → sweep × ``passes`` → finish, the plain
+    composition of what JAX fuses into one program (same results).
+    Returns ``burst(garrays, node_epoch0, perm_clipped, g_invalid_words,
+    seed_new_ids) -> (g_invalid_words, lane_counts, union_count, newly mask
+    words)``."""
+    level_starts = tuple(level_starts)
+
+    def burst(garrays: TopoGraphArrays, node_epoch0, perm_clipped, g_invalid, seed_new_ids):
+        return _lanes_stage_body(level_starts, n_tot, words, passes, garrays, node_epoch0,
+                                 perm_clipped, g_invalid, seed_new_ids)
+
+    return burst
+
+
+def topo_mirror_fused_lanes_chain_step(level_starts: Tuple[int, ...], n_tot: int, words: int,
+                                       passes: int, depth: int):
+    """``depth`` consecutive lane bursts, stage ``i`` against the state
+    stages ``< i`` left: a loop over :func:`_lanes_stage_body` where JAX
+    runs a ``lax.scan`` in one program (same results). Takes ``seed_mats``
+    int32[depth, 32*words, S]. Returns ``chain(garrays, node_epoch0,
+    perm_clipped, g_invalid_words, seed_mats) -> (g_invalid_words,
+    lane_counts int32[depth, 32*words], newly mask words [depth, nw])``."""
+    level_starts = tuple(level_starts)
+
+    def chain(garrays: TopoGraphArrays, node_epoch0, perm_clipped, g_invalid, seed_mats):
+        if seed_mats.shape[0] != depth:
+            raise ValueError(f"lanes chain: {seed_mats.shape[0]} stages, built for {depth}")
+        counts, masks = [], []
+        for mat in seed_mats:
+            _, lane_counts, _, newly = _lanes_stage_body(
+                level_starts, n_tot, words, passes, garrays, node_epoch0, perm_clipped,
+                g_invalid, mat)
+            counts.append(lane_counts)
+            masks.append(newly)
+        return g_invalid, torch.stack(counts), torch.stack(masks)
+
+    return chain

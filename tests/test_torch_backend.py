@@ -139,8 +139,10 @@ def test_backend_later_slices_raise():
     backend = pgraph.TpuGraphBackend(hub, device="cpu")
     with pytest.raises(NotImplementedError, match="A.3"):
         backend.bind_table_rows(None)
-    with pytest.raises(NotImplementedError, match="A.4"):
-        backend.invalidate_cascade_batch_lanes([])
+    with pytest.raises(NotImplementedError, match="A.3"):
+        backend.cascade_rows_lanes(None, [])
+    with pytest.raises(NotImplementedError, match="A.5"):
+        backend.enable_super_rounds()
     with pytest.raises(NotImplementedError, match="A.5"):
         hub.enable_nonblocking()
     assert pgraph.GraphBackend is pgraph.TpuGraphBackend

@@ -116,13 +116,18 @@ def test_from_numpy_state_round_trip():
     _same(jg, pg)
 
 
-def test_mirror_methods_name_their_slice():
+def test_mirror_methods_name_their_slice(monkeypatch):
     pg = DeviceGraph(device="cpu")
-    for name, args in (("start_topo_mirror_rebuild", ()), ("poll_topo_mirror_rebuild", ()),
-                       ("set_adaptive_passes", (True,)), ("run_waves_union_seq", ([[0]],)),
-                       ("run_waves_lanes", ([[0]],))):
-        with pytest.raises(NotImplementedError, match="A.4/A.5"):
+    for name, args in (("dispatch_waves_lanes_chain", ([[[0]]],)),
+                       ("harvest_waves_lanes_chain", ({},)),
+                       ("dispatch_waves_superround", (None, [], {}, 1))):
+        with pytest.raises(NotImplementedError, match="A.5"):
             getattr(pg, name)(*args)
+    pg.add_nodes(2)
+    pg.add_edges([0], [1])
+    monkeypatch.setenv("FUSION_MIRROR_CACHE", "unused")
+    with pytest.raises(NotImplementedError, match="A.4"):
+        pg.build_topo_mirror()
 
 
 def test_add_edges_rejects_ids_the_kernels_cannot_index():

@@ -315,3 +315,97 @@ def test_mirror_routes_on_card_match_cpu(card):
         np.testing.assert_array_equal(b[1], a[1])
     np.testing.assert_array_equal(gpu[3], cpu[3])
     assert gpu[4] == cpu[4] == (3, 2)
+
+
+def _lane_finish_inputs(card, words, seed, n_real=20000, n_virtual=3000, empty=False):
+    """Random swept lane bits over real and virtual rows, an injective perm
+    over the real rows (virtual rows clipped to n_cap), and pre-invalid
+    dense words; lane 31 (the sign bit) is set on some rows."""
+    rng = np.random.default_rng(seed)
+    n_rows = n_real + n_virtual + 1  # + the null row
+    n_cap = 1 << n_real.bit_length()
+    perm = np.full(n_rows, n_cap, np.int32)
+    real_rows = rng.permutation(n_rows - 1)[:n_real]
+    perm[real_rows] = rng.permutation(n_real).astype(np.int32)
+    is_real = np.zeros(n_rows, bool)
+    is_real[real_rows] = True
+    bits = rng.integers(-(2**31), 2**31, size=(n_rows, words), dtype=np.int32)
+    bits[rng.random(n_rows) < 0.7] = 0
+    bits[rng.random(n_rows) < 0.05, 0] = np.int32(-(2**31))
+    if empty:
+        bits[:] = 0
+    pre = np.zeros(n_cap + 1, bool)
+    pre[rng.choice(n_real, n_real // 4, replace=False)] = True
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(card)  # noqa: E731
+    g_inv = pack_bits(t(pre))
+    return t(bits if words > 1 else bits[:, 0]), t(is_real), t(perm), g_inv
+
+
+@pytest.mark.parametrize("words", [1, 2, 16, 32])
+@pytest.mark.parametrize("empty", [False, True])
+def test_lane_finish_kernel_matches_plain(card, words, empty):
+    """Lane counts, union count, newly mask and the dense words after the
+    commit, exact: pre-invalid rows, virtual rows, lane 31, and a burst
+    with an empty union."""
+    from stl_fusion_tpu_torch.ops import topo_wave as tpw
+
+    bits, is_real, perm, g_inv = _lane_finish_inputs(card, words, 7 + words, empty=empty)
+    g_plain = g_inv.clone()
+    want = tpw.lane_finish_plain(bits, is_real, perm, g_plain)
+    before = tpw.lane_finish_launches
+    got = tpw.lane_finish(bits, is_real, perm, g_inv)
+    torch.cuda.synchronize()
+    assert tpw.lane_finish_launches == before + 1
+    assert torch.equal(got[0], want[0]) and int(got[1]) == int(want[1])
+    assert torch.equal(got[2], want[2]) and torch.equal(g_inv, g_plain)
+    if empty:
+        assert int(got[1]) == 0 and int(got[0].sum()) == 0
+    else:
+        assert int(got[1]) > 0 and int(got[0][31]) > 0
+
+
+def test_lane_finish_rejects_widths_it_cannot_take(card):
+    from stl_fusion_tpu_torch.ops import topo_wave as tpw
+
+    bits, is_real, perm, g_inv = _lane_finish_inputs(card, 3, 1, n_real=100, n_virtual=10)
+    with pytest.raises(ValueError, match="power of two"):
+        tpw.lane_finish(bits, is_real, perm, g_inv)
+
+
+def test_topo_sweep_changed_flag_sees_virtual_rows(card):
+    """The changed flag is set by a pass that lights only a virtual row
+    (the per-word counts cover real rows only, so they read 0), and stays
+    clear on the next pass; it agrees with a before/after comparison and
+    with the plain version on a random state."""
+    from stl_fusion_tpu_torch.ops import topo_wave as tpw
+
+    # level 0: real row 0; level 1: virtual row 1 <- 0; null row 2
+    t = lambda a: torch.tensor(a, device=card)  # noqa: E731
+    ga = tpw.TopoGraphArrays(t([[2], [0], [2]]).int(), t([[-1], [0], [-1]]).int(),
+                             t([True, False, False]))
+    st = tpw.TopoState(t([0, 0, -2]).int(), t([1, 0, 0]).int())
+    changed = torch.zeros(1, dtype=torch.int32, device=card)
+    _, counts = tpw.topo_sweep((0, 1, 2), ga, None, st, 0, changed=changed)
+    assert int(counts) == 0 and int(changed) == 1 and st.invalid_bits.tolist() == [1, 1, 0]
+    changed.zero_()
+    tpw.topo_sweep((0, 1, 2), ga, None, st, 0, changed=changed)
+    assert int(changed) == 0
+
+    rng = np.random.default_rng(4)
+    src, dst = power_law_dag(20000, avg_degree=3, seed=4)
+    g = tpw.build_topo_graph(src, dst, 20000, k=4, slack=2)
+    ga = tpw.topo_graph_arrays(g, card)
+    for words in (1, 16):
+        shape = (g.n_tot + 1,) if words == 1 else (g.n_tot + 1, words)
+        pre = torch.from_numpy(rng.integers(-(2**31), 2**31, size=shape, dtype=np.int32)).to(card)
+        pre[torch.from_numpy(rng.random(g.n_tot + 1) < 0.95).to(card)] = 0
+        pre[g.n_tot] = 0
+        epochs = tpw.topo_init_state(g.n_tot, device=card).node_epoch
+        states = [tpw.TopoState(epochs, pre.clone()) for _ in range(2)]
+        flags = [torch.zeros(1, dtype=torch.int32, device=card) for _ in range(2)]
+        tpw.topo_sweep_plain(g.level_starts, ga, None, states[0], 0, changed=flags[0])
+        tpw.topo_sweep(g.level_starts, ga, None, states[1], 0, changed=flags[1])
+        torch.cuda.synchronize()
+        assert torch.equal(states[1].invalid_bits, states[0].invalid_bits)
+        want = int(bool((states[1].invalid_bits != pre).any()))
+        assert int(flags[1]) == int(flags[0]) == want == 1
