@@ -59,11 +59,24 @@ user calls. Phases, each printing one JSON line:
    background re-level after round 3, installed while rounds go on, and
    1 pass and an exact burst after it; patch and burst ms, one burst
    profiled, the re-level's seconds, peak memory;
-10. ``kernels`` — every kernel form against its plain PyTorch version on the
+10. ``live_10m`` — the twin of ``perf/live_path.py``'s blocking loop
+   (``stl_fusion_tpu_torch/live_path.py``) on ``power_law_10m``'s edge
+   arrays: a table-backed service bound as one 10M-row block, its edges
+   declared in bulk, warmed on the card, the topo mirror built; lone waves
+   and a sequenced batch of row waves; then 6 rounds of churn (2,000
+   level-ordered edges, one violating edge in the run, 4 scalar recomputes
+   of adopted rows), ``refresh_block_on_device`` (the ``block_refresh``
+   kernel) and a 512-group ``cascade_rows_lanes`` burst. Every refresh and
+   burst is held exactly (see :func:`phase_live`); ``read_batch`` of 1M
+   device ids equals ``base[ids]``; one ``live_10m_round`` line a round;
+11. ``kernels`` — every kernel form against its plain PyTorch version on the
    card, exact: ``or_popcount``; ``topo_sweep`` (the whole topo_10m sweep,
-   its widest level alone, and the lane burst's sweep on the churned mirror,
-   with its changed flag held against a before/after comparison);
-   ``lane_finish`` on that burst's bits; ``wave_expand`` (pure) and
+   its widest level alone, the lane burst's sweep on the churned mirror,
+   with its changed flag held against a before/after comparison, and a
+   sweep at k = 10 in-slots on a ``build_topo_mirror(k=8)`` mirror with
+   patched rows past 8 slots); ``lane_finish`` on that burst's bits, and at
+   W = 64 (the column-chunked form); ``block_refresh`` at the live shape
+   (and a correctness case at base 37 with int32 rows of 3); ``wave_expand`` (pure) and
    ``wave_expand_merge`` at the union wave's first and widest levels;
    ``wave_expand_shards`` at the sharded wave's first level; the ring from
    2-D rows (the main path's form) and from a list. Each with its time (CUDA
@@ -72,12 +85,13 @@ user calls. Phases, each printing one JSON line:
    function where there is one (the ring: the concatenation copied into
    all ``n`` rows; ``torch.cat`` alone is recorded beside it).
 
-The main path is four paths, each driven with every kernel's launch count
+The main path is five paths, each driven with every kernel's launch count
 set to 0 just before it and read just after: phases 3-4 (the dense wave)
 must launch ``or_popcount`` and ``wave_expand_merge``, phase 5 (the sharded
 wave) ``or_popcount``, ``wave_expand_shards`` and ``ring_all_gather``,
 phases 6-7 (the mirror) ``topo_sweep`` and no ``wave_expand``, phase 9 (the
-churn) ``topo_sweep`` and ``lane_finish``. Any
+churn) ``topo_sweep`` and ``lane_finish``, phase 10 (the live loop)
+``topo_sweep``, ``lane_finish`` and ``block_refresh``. Any
 failure raises and the script exits non-zero. The last lines are the kernel
 summary (the forms the main path runs), the ``nvidia-smi`` name and power
 limit, and
@@ -452,6 +466,7 @@ def phase_power_law(device, card: str, n: int = N_NODES, n_seeds: int = N_UNION_
         sync(device)
         return res, (time.perf_counter() - t) * 1e3
 
+    from stl_fusion_tpu_torch.ops import block_refresh as brf_mod
     from stl_fusion_tpu_torch.ops import or_popcount as opc_mod
     from stl_fusion_tpu_torch.ops import wave as wave_mod
 
@@ -525,6 +540,7 @@ def phase_sharded(device, card: str, level: dict) -> dict:
     import numpy as np
     import torch
 
+    from stl_fusion_tpu_torch.ops import block_refresh as brf_mod
     from stl_fusion_tpu_torch.ops import or_popcount as opc_mod
     from stl_fusion_tpu_torch.ops import ring_all_gather as rag
     from stl_fusion_tpu_torch.ops import wave as wave_mod
@@ -1044,6 +1060,165 @@ def phase_churn(device, card: str, level: dict) -> dict:
     return out
 
 
+def phase_live(device, card: str, level: dict) -> dict:
+    """The twin of ``perf/live_path.py``'s blocking loop
+    (``stl_fusion_tpu_torch/live_path.py``) at 10M rows, on
+    ``power_law_10m``'s edge arrays, through the public API: a table-backed
+    service bound as one row block, its edges declared in bulk, warmed on
+    the card, the topo mirror built, then the lone waves, a sequenced batch
+    and ``LIVE_ROUNDS`` rounds of churn, ``refresh_block_on_device`` and a
+    512-group ``cascade_rows_lanes`` burst. An observer holds every step
+    exactly: after the warm the values equal ``base`` and nothing is stale;
+    each refresh returns the block's host-invalid count before it, leaves
+    the values equal to ``base``, the block's invalid words (read back) zero
+    and the device validity equal to the host's; each burst rides the
+    patched mirror (no synchronous rebuild), its union equals the dense
+    union of all its seeds, lanes 0, 31, 32 and 511 their dense waves, and
+    the table's stale set is the stale set before it plus the union; each
+    recomputed scalar row kept its declared in-edges (a wave seeded at one
+    of its sources reaches it, on the lat mirror and on the dense path);
+    ``cascade_rows_batch_seq`` equals the same batches one call at a time;
+    ``read_batch`` of 1M random ids given as a CUDA tensor equals
+    ``base[ids]``. One ``live_10m_round`` line a round: refresh ms on the
+    host clock, on the device (CUDA events around the call) and the
+    ``block_refresh`` kernel's part of it, and burst ms."""
+    import numpy as np
+    import torch
+
+    from stl_fusion_tpu_torch.live_path import run_live
+    from stl_fusion_tpu_torch.ops import block_refresh as brf
+    from stl_fusion_tpu_torch.ops.bitops import unpack_words_host
+
+    n, src, dst = level["n"], level["src"], level["dst"]
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    out = {"phase": "live_10m", "card": card}
+    rounds = []
+
+    def fail(what):
+        raise AssertionError(f"live_10m: {what}")
+
+    class Checks:
+        def after_warm(self, ctx):
+            table = ctx["table"]
+            self.base = torch.from_numpy(ctx["svc"].base).to(device)
+            if not torch.equal(table.values, self.base) or table.stale_count() != 0:
+                fail("after the warm the values differ from base or rows are stale")
+
+        def after_seq(self, ctx, batches, counts):
+            backend, block = ctx["backend"], ctx["block"]
+            dg = backend.graph
+            seq_mask = dg._h_invalid[:n].copy()
+            backend.refresh_block_on_device(block)
+            if dg._h_invalid[:n].any():
+                fail("a refresh left invalid rows behind")
+            one = [backend.cascade_rows_batch(block, b) for b in batches]
+            if one != [int(c) for c in counts] or not np.array_equal(dg._h_invalid[:n], seq_mask):
+                fail(f"cascade_rows_batch_seq {list(counts)} differs from one call at a time {one}")
+            out["seq"] = {"counts": one}
+
+        def before_refresh(self, ctx, rnd):
+            brf.timing = []
+            self.launches = brf.launches
+            self.t = [torch.cuda.Event(enable_timing=True) for _ in range(2)] if cuda else None
+            if cuda:
+                self.t[0].record()
+
+        def after_refresh(self, ctx, rnd, refreshed, invalid_before):
+            table, block, dg = ctx["table"], ctx["block"], ctx["backend"].graph
+            dev_ms = None
+            if cuda:
+                self.t[1].record()
+                self.t[1].synchronize()
+                dev_ms = self.t[0].elapsed_time(self.t[1])
+            kernel_ms = sum(a.elapsed_time(b) for a, b in brf.timing)
+            brf.timing = None
+            if refreshed != invalid_before:
+                fail(f"round {rnd}: the refresh returned {refreshed}, {invalid_before} invalid")
+            if cuda and brf.launches != self.launches + 1:
+                fail(f"round {rnd}: the refresh made {brf.launches - self.launches} "
+                     f"block_refresh launches")
+            if not torch.equal(table.values, self.base):
+                fail(f"round {rnd}: values differ from base after the refresh")
+            words = dg.device_arrays().invalid.cpu().numpy()
+            if unpack_words_host(words, block.end())[block.base:].any():
+                fail(f"round {rnd}: the block's invalid words are not zero after the refresh")
+            if not np.array_equal(table.valid_mask.cpu().numpy(), ~table._stale_host):
+                fail(f"round {rnd}: the device validity differs from the host's")
+            self.stale_pre = table._stale_host.copy()
+            self.rec = {"refresh_device_ms": dev_ms, "block_refresh_ms": kernel_ms,
+                        "stale_left": int(table.stale_count())}
+
+        def after_burst(self, ctx, rnd, group_ids, counts, stats):
+            backend, block, table = ctx["backend"], ctx["block"], ctx["table"]
+            dg = backend.graph
+            if stats["rebuilds"] or stats["mirror_bursts"] != 1 or not stats["patched"]:
+                fail(f"round {rnd}: the burst did not ride the patched mirror ({stats})")
+            union = dg._h_invalid[:n].copy()
+            if not np.array_equal(table._stale_host, self.stale_pre | union[block.base:]):
+                fail(f"round {rnd}: the table's stale set is not the stale set before plus "
+                     f"the union")
+            groups = [block.base + np.asarray(g_, np.int64) for g_ in group_ids]
+            dg.clear_invalid()
+            c, ids = dg.run_waves_union([np.concatenate(groups).tolist()], mirror="off")
+            if c != int(union.sum()) or not np.array_equal(ids, np.nonzero(union)[0]):
+                fail(f"round {rnd}: the union ({int(union.sum())}) differs from the dense "
+                     f"union ({c})")
+            for lane in (0, 31, 32, 511):
+                dg.clear_invalid()
+                c, _ = dg.run_waves_union([groups[lane].tolist()], mirror="off")
+                if c != int(counts[lane]):
+                    fail(f"round {rnd}: lane {lane} counts {int(counts[lane])}, dense {c}")
+            reached = 0
+            for row in ctx["scalar_rows"]:
+                nid = block.base + row
+                ins = block.declared_in_srcs(nid)
+                if not len(ins):
+                    continue
+                for mirror in ("auto", "off"):
+                    dg.clear_invalid()
+                    _, ids = dg.run_waves_union([[int(ins[0])]], mirror=mirror)
+                    if nid not in set(ids.tolist()):
+                        fail(f"round {rnd}: recomputed row {row} lost its declared in-edge "
+                             f"({mirror})")
+                reached += 1
+            dg.clear_invalid()
+            dg.mark_invalid(np.nonzero(union)[0].astype(np.int32))
+            self.last_union = union
+            self.rec.update(union=int(union.sum()), scalar_rows_reached=reached)
+            rounds.append(self.rec)
+
+        def after_loop(self, ctx):
+            table = ctx["table"]
+            out["n_cap"] = ctx["backend"].graph.n_cap
+            gen = torch.Generator(device=device).manual_seed(GRAPH_SEED)
+            ids = torch.randint(0, n, (1_000_000,), device=device, generator=gen)
+            t = time.perf_counter()
+            first = table.read_batch(ids)  # refreshes every stale row first
+            sync(device)
+            first_ms = (time.perf_counter() - t) * 1e3
+            ms = time_ms(lambda: table.read_batch(ids), device)
+            if not (torch.equal(first, self.base[ids]) and torch.equal(table.read_batch(ids),
+                                                                       self.base[ids])):
+                fail("read_batch of device ids differs from base[ids]")
+            out["read_batch"] = {"ids": 1_000_000, "first_ms": first_ms, "ms": ms,
+                                 "rows_per_s": 1e6 / (ms / 1e3)}
+
+    checks = Checks()
+    rec = run_live(n_nodes=n, edges=(src, dst), device=device, observer=checks)
+    for r, extra in zip(rec["rounds"], rounds):
+        r.update(extra)
+        emit({"phase": "live_10m_round", **r})
+    out.update({k: v for k, v in rec.items() if k != "rounds"})
+    out["rounds"] = rec["rounds"]
+    if cuda:
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    emit({k: v for k, v in out.items() if k != "rounds"})
+    out["last_union"] = checks.last_union
+    return out
+
+
 def sweep_bytes(graph, words: int, start_level: int, seeded: bool, levels=None) -> int:
     """Bytes a sweep (or the ``levels`` range of one) must move: each
     gathered row's in_src and edge_epoch rows and epoch, each row's
@@ -1120,6 +1295,7 @@ SYMBOLS = {
     "ring_all_gather": "ring_gather_kernel",
     "topo_sweep": "topo_sweep_kernel",
     "lane_finish": "lane_finish_kernel",
+    "block_refresh": "block_refresh_kernel",
 }
 
 
@@ -1242,10 +1418,150 @@ def lane_kernel_rows(device, level, churn, rng, row, check, restored, timed_pair
                f"{unions['cleared']} union rows"),
         ms_with_restore=with_ms, restore_ms=restore_ms, union_rows=unions)
 
+    # lane_finish at W = 64 (2,048 lanes: the bits of that burst four times
+    # over), the column-chunked form: 2 chunk launches and 1 commit a call
+    final64 = final.repeat(1, 4)
+    gk, gp = some_w.clone(), some_w.clone()
+    got = tpw.lane_finish(final64, is_real, perm, gk)
+    want = tpw.lane_finish_plain(final64, is_real, perm, gp)
+    e = check("lane_finish (W=64)", [got[0], got[1], got[2], gk], [want[0], want[1], want[2], gp])
+    unions64 = int(got[1])
+    gk, gp = zero_w.clone(), zero_w.clone()
+    call, restore = restored([(gk, zero_w)], lambda: tpw.lane_finish(final64, is_real, perm, gk))
+    plain_call, _ = restored([(gp, zero_w)],
+                             lambda: tpw.lane_finish_plain(final64, is_real, perm, gp))
+    ms, plain_ms, with_ms, restore_ms = timed_pair(call, restore, plain_call, plain_reps=2)
+    row("lane_finish (W=64)", "lane_finish", "stl_fusion_tpu_torch/csrc/lane_finish.cu",
+        "stl_fusion_tpu/ops/topo_wave.py:768 (XLA topo_mirror_finish_lanes_step and "
+        "_lane_counts_blocked :446; no Pallas kernel)", e, ms, plain_ms,
+        rows_n * (4 * 64 + 1 + 4) + real_n * 4 + unions["cleared"] * 8 + g_inv.shape[0] * 4,
+        rows_n * 32 * 64, None, call=call, per_call=3, main_path=False,
+        shape=(f"{rows_n} rows x int32[64] ({real_n} real), {g_inv.shape[0]} dense words; "
+               f"2 column chunks of 32 words + the commit"),
+        ms_with_restore=with_ms, restore_ms=restore_ms, union_rows_1_8_invalid=unions64)
+
+
+
+def block_refresh_rows(device, live, rng, row, check, restored, timed_pair) -> None:
+    """``phase_kernels``' rows of ``block_refresh``: the live path's shape
+    (10M float32 rows at the block's base 0, the last burst's union as the
+    invalid words, validity left alone as on the main path), held against
+    the plain version with and without validity; and a correctness case at
+    an unaligned base, int32 rows of 3, with validity."""
+    import numpy as np
+    import torch
+
+    from stl_fusion_tpu_torch.ops import block_refresh as brf
+    from stl_fusion_tpu_torch.ops.bitops import pack_mask_host
+
+    n, union = live["nodes"], live["last_union"]
+    bits = np.zeros(live["n_cap"] + 1, bool)
+    bits[:n] = union
+    words0 = torch.from_numpy(pack_mask_host(bits)).to(device)
+    fresh = torch.arange(n, dtype=torch.float32, device=device)
+    values0 = torch.zeros(n, dtype=torch.float32, device=device)
+    valid0 = torch.from_numpy(rng.random(n) < 0.5).to(device)
+    e = 0
+    for with_valid in (False, True):
+        w, v, ok = words0.clone(), values0.clone(), valid0.clone()
+        pw, pv, pok = words0.clone(), values0.clone(), valid0.clone()
+        brf.block_refresh(w, v, fresh, ok if with_valid else None, 0)
+        brf.block_refresh_plain(pw, pv, fresh, pok if with_valid else None, 0)
+        e = max(e, check(f"block_refresh (valid={with_valid})", [w, v, ok], [pw, pv, pok]))
+    # unaligned: base 37, int32 rows of 3, random words, validity updated
+    n_u, base_u = 1_000_003, 37
+    wu = torch.from_numpy(pack_mask_host(rng.random(base_u + n_u + 64) < 0.4)).to(device)
+    vu = torch.from_numpy(rng.integers(-9, 9, (n_u, 3), dtype=np.int32)).to(device)
+    fu = torch.from_numpy(rng.integers(10, 99, (n_u, 3), dtype=np.int32)).to(device)
+    oku = torch.from_numpy(rng.random(n_u) < 0.5).to(device)
+    got = [wu.clone(), vu.clone(), oku.clone()]
+    want = [wu.clone(), vu.clone(), oku.clone()]
+    brf.block_refresh(got[0], got[1], fu, got[2], base_u)
+    brf.block_refresh_plain(want[0], want[1], fu, want[2], base_u)
+    e_u = check("block_refresh (base 37, int32[3] rows)", got, want)
+    w, v = words0.clone(), values0.clone()
+    pw, pv = words0.clone(), values0.clone()
+    call, restore = restored([(w, words0), (v, values0)],
+                             lambda: brf.block_refresh(w, v, fresh, None, 0))
+    plain_call, _ = restored([(pw, words0), (pv, values0)],
+                             lambda: brf.block_refresh_plain(pw, pv, fresh, None, 0))
+    ms, plain_ms, with_ms, restore_ms = timed_pair(call, restore, plain_call, plain_reps=5)
+    stale, n_words = int(union.sum()), (n + 31) // 32
+    row("block_refresh", "block_refresh", "stl_fusion_tpu_torch/csrc/block_refresh.cu",
+        "stl_fusion_tpu/graph/backend.py:1056 (XLA refresh_block_on_device prog; no Pallas "
+        "kernel)", max(e, e_u), ms, plain_ms, 8 * n_words + 8 * stale, 0, None, call=call,
+        shape=(f"{n} float32 rows at base 0, {stale} stale, {n_words} words, validity left "
+               f"alone"), ms_with_restore=with_ms, restore_ms=restore_ms, stale_rows=stale,
+        unaligned_case=f"base {base_u}, {n_u} int32[3] rows with validity: exact")
+
+
+def wide_mirror_rows(device, rng, row, check, restored, timed_pair, src_topo, rep_topo) -> None:
+    """``topo_sweep`` at k = 10: ``build_topo_mirror(k=8)`` (8 + 2 slack
+    in-slots) on a 1M-node graph, then 7 level-ordered edges patched into
+    each of 2,000 rows (their in-degree of at most 3 grows to 10, so the
+    slots past the kernel's chunk of 8 are live); a union of n / 10 seeds
+    through the patched mirror equals the dense union, and the sweep at
+    W = 16 equals its plain version."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from stl_fusion_tpu_torch.graph import DeviceGraph
+    from stl_fusion_tpu_torch.graph.synthetic import power_law_dag
+    from stl_fusion_tpu_torch.ops import topo_wave as tpw
+
+    n = 1_000_000
+    src, dst = power_law_dag(n, avg_degree=3, seed=GRAPH_SEED + 2)
+    g = DeviceGraph(node_capacity=n, edge_capacity=len(src) + 20_000, device=device)
+    g.add_nodes(n)
+    g.add_edges(src, dst)
+    m = g.build_topo_mirror(k=8)
+    ls, inv_perm, n_tot = m["level_starts_arr"], m["inv_perm"], m["n_tot"]
+    lvl = np.searchsorted(ls, inv_perm[:n], side="right") - 1
+    targets = rng.choice(np.nonzero(lvl >= 2)[0], 2000, replace=False)
+    u = np.concatenate([rng.choice(np.nonzero(lvl < lvl[v])[0], 7, replace=False)
+                        for v in targets]).astype(np.int32)
+    g.add_edges(u, np.repeat(targets, 7).astype(np.int32))
+    seeds = rng.choice(n, n // 10, replace=False).tolist()
+    c_m, ids_m = g.run_waves_union([seeds])
+    if not g._mirror_valid() or g.mirror_patches != 1:
+        raise AssertionError("topo_sweep (k=10): the edges were not patched into the mirror")
+    g.clear_invalid()
+    c_d, ids_d = g.run_waves_union([seeds], mirror="off")
+    if c_m != c_d or not np.array_equal(np.sort(ids_m), ids_d):
+        raise AssertionError(f"topo_sweep (k=10): the mirror union ({c_m}) differs from the "
+                             f"dense union ({c_d})")
+    h = m["h_in_src"]
+    wide_rows = int((h[:, 8:] != n_tot).any(axis=1).sum())
+    if h.shape[1] != 10 or not wide_rows:
+        raise AssertionError("topo_sweep (k=10): no row uses the slots past the first 8")
+    w = 16
+    seed_bits = torch.from_numpy(rng.integers(-(2**31), 2**31, (n_tot + 1, w), dtype=np.int32)
+                                 * (rng.random((n_tot + 1, 1)) < 0.01)).to(device)
+    seed_bits[n_tot] = 0
+    zero = torch.zeros_like(seed_bits)
+    st = tpw.TopoState(m["node_epoch0"], zero.clone())
+    plain_st = tpw.TopoState(m["node_epoch0"], zero.clone())
+    lstarts, mga = m["level_starts"], m["garrays"]
+    call, restore = restored([(st.invalid_bits, zero)],
+                             lambda: tpw.topo_sweep(lstarts, mga, seed_bits, st, 0))
+    plain_call, _ = restored([(plain_st.invalid_bits, zero)],
+                             lambda: tpw.topo_sweep_plain(lstarts, mga, seed_bits, plain_st, 0))
+    got, want = call()[1], plain_call()[1]
+    e = check("topo_sweep (k=10)", [got, st.invalid_bits], [want, plain_st.invalid_bits])
+    ms, plain_ms, with_ms, restore_ms = timed_pair(call, restore, plain_call, plain_reps=3)
+    mview = SimpleNamespace(level_starts=lstarts, in_src=h, n_tot=n_tot)
+    row("topo_sweep (k=10)", "topo_sweep", src_topo, rep_topo, e, ms, plain_ms,
+        sweep_bytes(mview, w, 0, True), 0, None, call=call, per_call=_nonempty_levels(lstarts),
+        shape=(f"{n_tot + 1} rows x int32[{w}], k=10 ({wide_rows} rows with live slots past "
+               f"8), {len(lstarts) - 1} levels"),
+        ms_with_restore=with_ms, restore_ms=restore_ms, main_path=False,
+        union_check={"seeds": len(seeds), "newly": int(c_m)})
 
 
 def phase_kernels(device, main_launches: dict, level: dict, sg, topo: dict, churn: dict,
-                  card: str) -> dict:
+                  live: dict, card: str) -> dict:
     """Every kernel form against its plain version on the card at the main
     path's shapes, exact, with its time (CUDA events), its device time
     (``torch.profiler``), the bound for the same work and a PyTorch call
@@ -1488,6 +1804,8 @@ def phase_kernels(device, main_launches: dict, level: dict, sg, topo: dict, chur
 
     lane_kernel_rows(device, level, churn, rng, row, check, restored, timed_pair, src_topo,
                      rep_topo)
+    wide_mirror_rows(device, rng, row, check, restored, timed_pair, src_topo, rep_topo)
+    block_refresh_rows(device, live, rng, row, check, restored, timed_pair)
 
     # device time alone (torch.profiler): tells launch- or host-bound calls
     # from slow kernels, since CUDA events over back-to-back calls also time
@@ -1511,6 +1829,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; nothing was run", file=sys.stderr)
         return 2
+    from stl_fusion_tpu_torch.ops import block_refresh as brf_mod
     from stl_fusion_tpu_torch.ops import or_popcount as opc_mod
     from stl_fusion_tpu_torch.ops import ring_all_gather as rag_mod
     from stl_fusion_tpu_torch.ops import topo_wave as tpw_mod
@@ -1526,14 +1845,15 @@ def main() -> int:
                 "wave_expand_merge": wave_mod.form_launches["merge"],
                 "wave_expand_shards": wave_mod.form_launches["shards"],
                 "ring_all_gather": rag_mod.launches, "ring_cuda_launches": rag_mod.cuda_launches,
-                "topo_sweep": tpw_mod.launches, "lane_finish": tpw_mod.lane_finish_launches}
+                "topo_sweep": tpw_mod.launches, "lane_finish": tpw_mod.lane_finish_launches,
+                "block_refresh": brf_mod.launches}
 
     def drive(path, run, kernels, absent=()):
         """One path of the main path: counts to 0 just before, read just
         after; each named kernel form must have launched, each ``absent``
         one must not have, and the ring made one CUDA launch per gather."""
         opc_mod.launches = wave_mod.launches = rag_mod.launches = rag_mod.cuda_launches = 0
-        tpw_mod.launches = tpw_mod.lane_finish_launches = 0
+        tpw_mod.launches = tpw_mod.lane_finish_launches = brf_mod.launches = 0
         wave_mod.form_launches.update(dict.fromkeys(wave_mod.form_launches, 0))
         res = run()
         got = counts()
@@ -1569,9 +1889,12 @@ def main() -> int:
                   sg.clear_invalid, calls, exchange="ring")
     churn, churned = drive("churn", lambda: phase_churn(device, dev["nvidia_smi"], level),
                            ("topo_sweep", "lane_finish"))
+    live, lived = drive("live", lambda: phase_live(device, dev["nvidia_smi"], level),
+                        ("topo_sweep", "lane_finish", "block_refresh"))
     main_launches = {name: dense[name] + sharded[name] + mirror[name] + churned[name]
-                     for name in dense}
-    kernels = phase_kernels(device, main_launches, level, sg, topo, churn, dev["nvidia_smi"])
+                     + lived[name] for name in dense}
+    kernels = phase_kernels(device, main_launches, level, sg, topo, churn, live,
+                            dev["nvidia_smi"])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in kernels.values()

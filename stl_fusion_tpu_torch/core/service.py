@@ -118,12 +118,13 @@ class TableBacking:
 
     __slots__ = (
         "rows", "batch", "row_shape", "dtype", "keys", "device_batch",
-        "device_args",
+        "device_args", "device",
     )
 
     def __init__(
         self, rows: int, batch: str, row_shape: tuple = (), dtype=None, keys=False,
         device_batch: Optional[str] = None, device_args: Optional[str] = None,
+        device=None,
     ):
         self.rows = int(rows)
         self.batch = batch
@@ -132,16 +133,17 @@ class TableBacking:
         #: False = dense int keys; True = one InternKeyCodec PER TABLE
         #: (per service instance × hub); a codec instance = shared layout
         self.keys = keys
-        #: name of a jax-traceable method ``(ids, *args) -> rows`` — the
-        #: DEVICE loader: stale-row refreshes then run entirely on device
-        #: from the resident invalid state, zero host value traffic
-        #: (TpuGraphBackend.refresh_block_on_device). Dense int keys only.
-        #: ``device_args`` names a method returning the loader's device-
-        #: array state, threaded through the program as RUNTIME args —
-        #: closure-captured arrays would ride the compile payload as
-        #: constants (hundreds of MB at scale; see ops/pull_wave.py).
+        #: name of a torch method ``(ids: int tensor on the table's device,
+        #: *args) -> rows`` — the DEVICE loader: stale-row refreshes then
+        #: run entirely on the device from the resident invalid state, zero
+        #: host value traffic (TpuGraphBackend.refresh_block_on_device).
+        #: Dense int keys only. ``device_args`` names a method returning the
+        #: loader's tensors.
         self.device_batch = device_batch
         self.device_args = device_args
+        #: the table's device when the hub has no graph backend (with one,
+        #: the table lives on the backend's device); None means ``cuda``
+        self.device = device
         if device_batch is not None and keys:
             raise ValueError("device_batch requires dense int keys (keys=False)")
 
@@ -225,10 +227,66 @@ class ComputeMethodDef:
         key = (id(hub), self.name)
         table = store.get(key)
         if table is None:
-            raise NotImplementedError(
-                f"{self.name}: table-backed compute methods (MemoTable) are "
-                f"not ported yet: ROADMAP A.3 (columnar memo table)"
+            from ..ops.memo_table import MemoTable
+
+            spec = self.table
+            batch_fn = getattr(service, spec.batch)
+            codec = spec.make_codec()  # PER-TABLE: instances don't share rows
+            arity = len(self.signature.parameters) - 1  # minus self
+            if codec is not None:
+                # codec-backed tables refresh through KEYS: the service's
+                # batch method sees what it declared (string ids, tuples),
+                # never internal row numbers. Single-arg methods get bare
+                # keys by DECLARED arity — a tuple-valued key of a 1-arg
+                # method stays one key
+                raw_batch = batch_fn
+
+                def batch_fn(ids):
+                    keys = []
+                    for i in ids:
+                        args = codec.decode(int(i))
+                        if args is None:
+                            raise KeyError(
+                                f"row {int(i)} has no interned key — read "
+                                f"codec-backed tables via read_keys()"
+                            )
+                        keys.append(args[0] if arity == 1 else args)
+                    return raw_batch(keys)
+
+            # the table lives where the hub's graph backend mirrors the graph
+            # (a row block's refresh runs there), else on TableBacking.device
+            backend = hub.graph_backend
+            device = backend.graph.device if backend is not None else spec.device
+            table = MemoTable(
+                spec.rows, batch_fn, row_shape=spec.row_shape, dtype=spec.dtype, device=device
             )
+            table.key_codec = codec
+            table.key_arity = arity
+            if spec.device_batch is not None:
+                table.device_compute_fn = getattr(service, spec.device_batch)
+                if spec.device_args is not None:
+                    table.device_loader_args = getattr(service, spec.device_args)
+            # table → scalar: a row invalidation reaches any LIVE scalar
+            # node for that key (one registry probe per id; nodes that were
+            # never read don't exist and cost nothing). node.invalidate()
+            # is idempotent, which is what breaks the scalar↔table cycle.
+            function = self.get_function(service)
+            registry = hub.registry
+            method_def = self
+
+            def on_invalidate(ids) -> None:
+                for i in ids:
+                    args = method_def.args_for_row(int(i), table)
+                    if args is None:
+                        continue  # never-interned row: no scalar node exists
+                    node = registry.get(
+                        ComputeMethodInput(method_def, service, args, function)
+                    )
+                    if node is not None:
+                        node.invalidate()
+
+            table.on_invalidate.append(on_invalidate)
+            store[key] = table
         return table
 
     def row_for_args(self, args: tuple, table) -> Optional[int]:

@@ -33,8 +33,15 @@
 // - a row's union test ORs its W words across the W threads of its warp
 //   segment with shuffles; the segment's first thread does the two atomicOrs
 //   and counts the row.
-// W must be a power of two <= 32 (the port's lane bursts pack 32 * 2^j
-// groups); the wrapper checks it.
+// Any W: a power of two <= 32 (the port's lane bursts pack 32 * 2^j groups,
+// W = 16 on the main path) is the one launch above. Any other W splits a
+// row's words into column chunks of power-of-two widths <= 32, one launch
+// each over all rows, with its lane counters at the chunk's 32 * col0 lanes;
+// those launches read the pre-burst dense words and OR each union row's bit
+// into the newly mask only, so a later chunk still sees the state before the
+// burst. A last launch (lane_finish_kernel_commit) then ORs the newly mask
+// into the dense words and counts its bits: perm is injective over real
+// rows, so the union's rows are exactly the mask's bits.
 #include <cuda_runtime.h>
 
 namespace {
@@ -57,10 +64,16 @@ __device__ __forceinline__ void flush_planes(unsigned (&c)[kPlanes], int* lane_s
   for (int i = 0; i < kPlanes; ++i) c[i] = 0;
 }
 
+// CHUNK: one column chunk of a wider row (row stride `stride`, columns from
+// col0, no commit); without it the row is the W words themselves and the
+// union commits, the code of a power-of-two W <= 32.
+template <bool CHUNK>
 __global__ void __launch_bounds__(kThreads)
 lane_finish_kernel(const int* __restrict__ bits, const unsigned char* __restrict__ is_real,
                    const int* __restrict__ perm, int* g_inv, int* newly, int* lane_counts,
-                   int* union_count, long long n_rows, int W) {
+                   int* union_count, long long n_rows, int W, int stride, int col0) {
+  const int row_stride = CHUNK ? stride : W;
+  const int c0 = CHUNK ? col0 : 0;
   __shared__ int lane_sh[32 * 32];
   __shared__ int block_unions;
   const int L = 32 * W;
@@ -89,7 +102,7 @@ lane_finish_kernel(const int* __restrict__ bits, const unsigned char* __restrict
       const bool in = r < n_rows;
       real[u] = in && is_real[r];
       p[u] = in ? __ldg(perm + r) : 0;
-      v[u] = in ? (unsigned)__ldg(bits + r * W + w) : 0u;
+      v[u] = in ? (unsigned)__ldg(bits + r * row_stride + c0 + w) : 0u;
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u)
@@ -107,9 +120,9 @@ lane_finish_kernel(const int* __restrict__ bits, const unsigned char* __restrict
       for (int off = W >> 1; off > 0; off >>= 1) any |= __shfl_xor_sync(0xffffffffu, any, off);
       if (w == 0 && any) {
         const int bit = (int)(1u << (p[u] & 31));
-        atomicOr(g_inv + (p[u] >> 5), bit);
+        if (!CHUNK) atomicOr(g_inv + (p[u] >> 5), bit);
         atomicOr(newly + (p[u] >> 5), bit);
-        ++unions;
+        if (!CHUNK) ++unions;
       }
     }
     since_flush += kUnroll;
@@ -122,8 +135,42 @@ lane_finish_kernel(const int* __restrict__ bits, const unsigned char* __restrict
   if (unions) atomicAdd(&block_unions, unions);
   __syncthreads();
   for (int i = threadIdx.x; i < L; i += blockDim.x)
-    if (lane_sh[i]) atomicAdd(lane_counts + i, lane_sh[i]);
+    if (lane_sh[i]) atomicAdd(lane_counts + 32 * c0 + i, lane_sh[i]);
   if (threadIdx.x == 0 && block_unions) atomicAdd(union_count, block_unions);
+}
+
+// The chunked form's commit: g_inv |= newly, union_count += popcount(newly).
+__global__ void __launch_bounds__(kThreads)
+lane_finish_kernel_commit(int* g_inv, const int* __restrict__ newly, int* union_count,
+                          long long n_words) {
+  __shared__ int block_unions;
+  if (threadIdx.x == 0) block_unions = 0;
+  __syncthreads();
+  int unions = 0;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n_words;
+       i += (long long)gridDim.x * blockDim.x) {
+    const int x = __ldg(newly + i);
+    if (x) {
+      g_inv[i] |= x;
+      unions += __popc((unsigned)x);
+    }
+  }
+  if (unions) atomicAdd(&block_unions, unions);
+  __syncthreads();
+  if (threadIdx.x == 0 && block_unions) atomicAdd(union_count, block_unions);
+}
+
+template <bool CHUNK>
+int launch_chunk(const int* bits, const unsigned char* is_real, const int* perm, int* g_inv,
+                 int* newly, int* lane_counts, int* union_count, long long n_rows, int Wc,
+                 int stride, int col0, cudaStream_t stream) {
+  const long long rows_per_block = kThreads / Wc;
+  long long blocks = (n_rows + rows_per_block * kUnroll - 1) / (rows_per_block * kUnroll);
+  if (blocks > (long long)kSms * kMaxBlocksPerSm) blocks = (long long)kSms * kMaxBlocksPerSm;
+  if (blocks < 1) blocks = 1;
+  lane_finish_kernel<CHUNK><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      bits, is_real, perm, g_inv, newly, lane_counts, union_count, n_rows, Wc, stride, col0);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -132,17 +179,39 @@ lane_finish_kernel(const int* __restrict__ bits, const unsigned char* __restrict
 // perm int32[n_rows] (each row's original id, clipped into the dense words),
 // g_inv int32 dense words (updated in place), newly int32 mask words like
 // g_inv, lane_counts int32[32 * W] and union_count int32[1]: the last three
-// zeroed by the caller. Requires W a power of two <= 32 (checked by the
-// wrapper).
+// zeroed by the caller. n_words is the word count of g_inv and newly. W >= 1
+// (checked by the wrapper); `launched` (host int) receives the CUDA launches
+// made: 1 when W is a power of two <= 32, else one per column chunk + 1.
 extern "C" int lane_finish_launch(const void* bits, const void* is_real, const void* perm,
                                   void* g_inv, void* newly, void* lane_counts, void* union_count,
-                                  long long n_rows, int W, void* stream) {
-  const long long rows_per_block = kThreads / W;
-  long long blocks = (n_rows + rows_per_block * kUnroll - 1) / (rows_per_block * kUnroll);
+                                  long long n_rows, int W, long long n_words, void* launched,
+                                  void* stream) {
+  const int* b = (const int*)bits;
+  const unsigned char* real = (const unsigned char*)is_real;
+  const int* p = (const int*)perm;
+  cudaStream_t s = (cudaStream_t)stream;
+  int* made = (int*)launched;
+  *made = 0;
+  if (W <= 32 && (W & (W - 1)) == 0) {
+    *made = 1;
+    return launch_chunk<false>(b, real, p, (int*)g_inv, (int*)newly, (int*)lane_counts,
+                               (int*)union_count, n_rows, W, W, 0, s);
+  }
+  for (int col0 = 0; col0 < W;) {
+    int wc = 32;
+    while (wc > W - col0) wc >>= 1;
+    const int err = launch_chunk<true>(b, real, p, (int*)g_inv, (int*)newly,
+                                       (int*)lane_counts, (int*)union_count, n_rows, wc, W,
+                                       col0, s);
+    ++*made;
+    if (err) return err;
+    col0 += wc;
+  }
+  long long blocks = (n_words + kThreads - 1) / kThreads;
   if (blocks > (long long)kSms * kMaxBlocksPerSm) blocks = (long long)kSms * kMaxBlocksPerSm;
   if (blocks < 1) blocks = 1;
-  lane_finish_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int*)bits, (const unsigned char*)is_real, (const int*)perm, (int*)g_inv,
-      (int*)newly, (int*)lane_counts, (int*)union_count, n_rows, W);
+  lane_finish_kernel_commit<<<(unsigned)blocks, kThreads, 0, s>>>(
+      (int*)g_inv, (const int*)newly, (int*)union_count, n_words);
+  ++*made;
   return (int)cudaGetLastError();
 }

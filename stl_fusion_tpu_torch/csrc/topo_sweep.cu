@@ -35,8 +35,10 @@
 //   words, so a row's 64 B are one contiguous access of 4 lanes and each
 //   gather is one 64 B row read; otherwise one thread per word (W = 1, the
 //   live mirror's form, k = 6 through its two slack columns);
-// - a thread first loads all k slots' ids and epochs, then issues the
-//   gathers of the live ones together; pad slots and dead edges load nothing;
+// - a thread first loads the ids and epochs of up to kMaxK = 8 slots, then
+//   issues the gathers of the live ones together; pad slots and dead edges
+//   load nothing; a row of k > 8 slots repeats that per chunk of 8 (a
+//   separate instantiation, so k <= 8 keeps its code and registers);
 // - counts: per thread in registers across a grid-stride loop, then shared
 //   memory atomics per block, then one global atomicAdd per word per block.
 #include <cuda_runtime.h>
@@ -78,7 +80,9 @@ __device__ __forceinline__ void store_row(int* p, const int (&w)[VEC]) {
 }
 
 // Rows [r0, r0+n0) (gathered when `gather`), then rows [r1, r1+n1) (merged only).
-template <int VEC>
+// CHUNKED (k > kMaxK) walks the slots in chunks of kMaxK; without it the
+// chunk loop is one trip at j0 = 0, the code of k <= kMaxK.
+template <int VEC, bool CHUNKED>
 __global__ void __launch_bounds__(kThreads)
 topo_sweep_kernel(const int* __restrict__ in_src, const int* __restrict__ edge_epoch,
                   const int* __restrict__ node_epoch, const unsigned char* __restrict__ is_real,
@@ -119,22 +123,26 @@ topo_sweep_kernel(const int* __restrict__ in_src, const int* __restrict__ edge_e
     }
     if (gather && i < n0) {
       const int own = __ldg(node_epoch + r);
-      int src[kMaxK];
+      // the in-slots in chunks of kMaxK (one chunk when k <= kMaxK): a
+      // chunk's ids and epochs load together, then its live gathers
+      for (int j0 = 0; j0 < (CHUNKED ? k : 1); j0 += kMaxK) {
+        int src[kMaxK];
 #pragma unroll
-      for (int j = 0; j < kMaxK; ++j) {
-        src[j] = (int)n_tot;
-        if (j < k) {
-          const int s = __ldg(in_src + r * k + j);
-          if (s != (int)n_tot && __ldg(edge_epoch + r * k + j) == own) src[j] = s;
+        for (int j = 0; j < kMaxK; ++j) {
+          src[j] = (int)n_tot;
+          if (j0 + j < k) {
+            const int s = __ldg(in_src + r * k + j0 + j);
+            if (s != (int)n_tot && __ldg(edge_epoch + r * k + j0 + j) == own) src[j] = s;
+          }
         }
-      }
 #pragma unroll
-      for (int j = 0; j < kMaxK; ++j) {
-        if (src[j] != (int)n_tot) {
-          int v[VEC];
-          ldg_row<VEC>(inv + (long long)src[j] * W + (long long)g * VEC, v);
+        for (int j = 0; j < kMaxK; ++j) {
+          if (src[j] != (int)n_tot) {
+            int v[VEC];
+            ldg_row<VEC>(inv + (long long)src[j] * W + (long long)g * VEC, v);
 #pragma unroll
-          for (int c = 0; c < VEC; ++c) fire[c] |= v[c];
+            for (int c = 0; c < VEC; ++c) fire[c] |= v[c];
+          }
         }
       }
     }
@@ -158,7 +166,7 @@ topo_sweep_kernel(const int* __restrict__ in_src, const int* __restrict__ edge_e
     if (block_counts[i]) atomicAdd(counts + i, block_counts[i]);
 }
 
-template <int VEC>
+template <int VEC, bool CHUNKED>
 int launch_rows(const int* in_src, const int* edge_epoch, const int* node_epoch,
                 const unsigned char* is_real, const int* seed, int* inv, int* counts,
                 int* changed, long long r0, long long n0, long long r1, long long n1, int k,
@@ -169,7 +177,7 @@ int launch_rows(const int* in_src, const int* edge_epoch, const int* node_epoch,
   long long blocks = (n0 + n1 + rows_per_block - 1) / rows_per_block;
   if (blocks < 1) blocks = 1;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  topo_sweep_kernel<VEC><<<(unsigned)blocks, threads, W * sizeof(int), stream>>>(
+  topo_sweep_kernel<VEC, CHUNKED><<<(unsigned)blocks, threads, W * sizeof(int), stream>>>(
       in_src, edge_epoch, node_epoch, is_real, seed, inv, counts, changed, r0, n0, r1, n1, k,
       W, n_tot, gather);
   return (int)cudaGetLastError();
@@ -183,8 +191,8 @@ int launch_rows(const int* in_src, const int* edge_epoch, const int* node_epoch,
 // level and the null row; tail = n_tot + 1 is no tail). `seed` may be null (no
 // seeds); `changed` may be null (no changed flag). `level_starts` is a HOST
 // array of n_levels+1 int64; `launched` (host int) receives the number of
-// launches made. Requires W / (vec4 ? 4 : 1) <=
-// 256 and k <= 8 (checked by the wrapper).
+// launches made. Requires W / (vec4 ? 4 : 1) <= 256 (checked by the
+// wrapper); any k.
 extern "C" int topo_sweep_launch(const void* in_src, const void* edge_epoch,
                                  const void* node_epoch, const void* is_real, const void* seed,
                                  void* inv, void* counts, void* changed,
@@ -198,15 +206,11 @@ extern "C" int topo_sweep_launch(const void* in_src, const void* edge_epoch,
   auto run = [&](long long a, long long n, int gather) {
     const long long r1 = tail, n1 = tail_n;
     tail_n = 0;  // only the first launch takes the tail
-    if (vec4)
-      return launch_rows<4>((const int*)in_src, (const int*)edge_epoch, (const int*)node_epoch,
-                            (const unsigned char*)is_real, (const int*)seed, (int*)inv,
-                            (int*)counts, (int*)changed, a, n, r1, n1, k, W, n_tot, gather,
-                            (cudaStream_t)stream);
-    return launch_rows<1>((const int*)in_src, (const int*)edge_epoch, (const int*)node_epoch,
-                          (const unsigned char*)is_real, (const int*)seed, (int*)inv,
-                          (int*)counts, (int*)changed, a, n, r1, n1, k, W, n_tot, gather,
-                          (cudaStream_t)stream);
+    auto* f = vec4 ? (k > kMaxK ? launch_rows<4, true> : launch_rows<4, false>)
+                   : (k > kMaxK ? launch_rows<1, true> : launch_rows<1, false>);
+    return f((const int*)in_src, (const int*)edge_epoch, (const int*)node_epoch,
+             (const unsigned char*)is_real, (const int*)seed, (int*)inv, (int*)counts,
+             (int*)changed, a, n, r1, n1, k, W, n_tot, gather, (cudaStream_t)stream);
   };
   for (int l = 0; l < n_levels && err == 0; ++l) {
     const long long a = starts[l], b = starts[l + 1];

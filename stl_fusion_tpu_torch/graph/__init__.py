@@ -1,5 +1,6 @@
-"""Device graph mirror (dense path) and the hub backend that feeds it."""
-from .backend import GraphBackend, TpuGraphBackend
+"""Device graph mirror (dense path), the hub backend that feeds it, and the
+backend's columnar row blocks."""
+from .backend import GraphBackend, RowBlock, TpuGraphBackend
 from .device_graph import DeviceGraph
 
-__all__ = ["DeviceGraph", "GraphBackend", "TpuGraphBackend"]
+__all__ = ["DeviceGraph", "GraphBackend", "RowBlock", "TpuGraphBackend"]

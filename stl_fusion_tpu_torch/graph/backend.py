@@ -27,10 +27,16 @@ The sharded mirror (``to_sharded``, ``sharded_mirror``,
 shards (``parallel/``). ``build_topo_mirror`` builds the device graph's topo
 and lat mirrors, which ``invalidate_cascade_batch`` then rides, and
 ``invalidate_cascade_batch_lanes`` runs up to 512 independent command groups
-in one mirror sweep, one bit lane each. Row blocks (columnar tables), the
-packed and routed mesh mirrors, super-rounds and the watchdog are later
-slices of the port and raise ``NotImplementedError``; the row-block checks on
-the apply path stay, as no-ops while no block is bound.
+in one mirror sweep, one bit lane each.
+
+Row blocks (:class:`RowBlock`, ``bind_table_rows``): a ``MemoTable``'s dense
+key space registers as ONE contiguous block of graph nodes, its dependency
+edges are declared in bulk numpy, and waves over it apply to the table
+vectorized; ``refresh_block_on_device`` recomputes the block's stale rows
+through the table's device loader and the ``block_refresh`` kernel
+(``ops/block_refresh.py``). The packed and routed mesh mirrors, super-rounds,
+the fused burst→refresh chain and the watchdog are later slices of the port
+and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -42,10 +48,12 @@ import weakref
 from typing import TYPE_CHECKING, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..diagnostics.flight_recorder import RECORDER
 from ..diagnostics.metrics import WaveProfiler, global_metrics, next_wave_seq
 from ..diagnostics.tracing import CAUSE_PREFIX, current_span, span_cause_id
+from ..ops.block_refresh import block_refresh
 from ..parallel import ShardedDeviceGraph, graph_mesh
 from .device_graph import DeviceGraph, check_structure_cache
 
@@ -55,7 +63,7 @@ if TYPE_CHECKING:
 
 log = logging.getLogger("stl_fusion_tpu_torch")
 
-__all__ = ["TpuGraphBackend", "GraphBackend"]
+__all__ = ["TpuGraphBackend", "GraphBackend", "RowBlock"]
 
 #: process-unique cause-id prefix, shared with tracing
 _CAUSE_PREFIX = CAUSE_PREFIX
@@ -63,6 +71,108 @@ _CAUSE_PREFIX = CAUSE_PREFIX
 
 def _not_ported(what: str, slice_: str):
     raise NotImplementedError(f"TpuGraphBackend.{what} is not ported yet: ROADMAP {slice_}")
+
+
+class RowBlock:
+    """A MemoTable bound to a contiguous block of graph node ids — the
+    columnar registration unit.
+
+    A table-backed service registers its whole dense key space in ONE
+    allocation (``bind_table_rows``) and declares dependency edges in bulk
+    numpy (``declare_row_edges``): graph construction runs at array speed,
+    not at Python-object speed. Row ``r`` of the table IS graph node
+    ``base + r``; scalar ``@compute_method`` nodes for the same keys adopt
+    the row's node id on registration, so the scalar and columnar views
+    cascade as ONE logical node."""
+
+    __slots__ = ("table", "base", "n_rows", "_decl_src", "_decl_dst", "_csr")
+
+    def __init__(self, table, base: int, n_rows: int):
+        self.table = table
+        self.base = base
+        self.n_rows = n_rows
+        # declared topology, kept so a scalar recompute (epoch bump) of a
+        # row can re-declare that row's in-edges at the new epoch — the
+        # declared-edge contract is "every version until redeclared"
+        self._decl_src: List[np.ndarray] = []
+        self._decl_dst: List[np.ndarray] = []
+        self._csr: Optional[Tuple[np.ndarray, np.ndarray, int]] = None
+
+    def end(self) -> int:
+        return self.base + self.n_rows
+
+    def _declared_csr(self) -> Tuple[np.ndarray, np.ndarray, int]:
+        """CSR (starts, src_nids, declarations_included) of declared edges
+        by LOCAL dst row. Built lazily and NOT rebuilt per declaration —
+        per-row queries scan the post-build declaration tail instead (see
+        :meth:`declared_in_srcs`): a full rebuild sorts EVERY declared edge,
+        while churn appends a few thousand. Refolded once the tail outgrows
+        the CSR itself."""
+        if self._csr is not None:
+            starts, src, included = self._csr
+            tail_edges = sum(len(a) for a in self._decl_src[included:])
+            if tail_edges > max(len(src), 4096):
+                self._csr = None
+        if self._csr is None:
+            if self._decl_src:
+                src = np.concatenate(self._decl_src)
+                dst = np.concatenate(self._decl_dst)
+                local = dst - self.base
+                order = np.argsort(local, kind="stable")
+                src, local = src[order], local[order]
+                starts = np.zeros(self.n_rows + 1, dtype=np.int64)
+                np.add.at(starts[1:], local, 1)
+                starts = np.cumsum(starts)
+            else:
+                src = np.empty(0, dtype=np.int32)
+                starts = np.zeros(self.n_rows + 1, dtype=np.int64)
+            self._csr = (starts, src, len(self._decl_src))
+        return self._csr
+
+    def declared_in_srcs(self, nid: int) -> np.ndarray:
+        """Declared in-edge sources of graph node ``nid`` (base CSR slice +
+        a linear scan of declarations made after the CSR was built)."""
+        starts, src, included = self._declared_csr()
+        r = nid - self.base
+        s, e = int(starts[r]), int(starts[r + 1])
+        parts = [src[s:e]]
+        for s_arr, d_arr in zip(self._decl_src[included:], self._decl_dst[included:]):
+            sel = d_arr == nid
+            if sel.any():
+                parts.append(s_arr[sel])
+        return parts[0] if len(parts) == 1 else np.concatenate(parts)
+
+
+def _finish_block_refresh_bookkeeping(table, cleared: np.ndarray) -> None:
+    """The host bookkeeping tail of a columnar device refresh: stale
+    accounting for the rows the device recomputed, the table version bump,
+    and the non-backend ``on_refresh`` fan-out. ``cleared`` is a bool mask
+    over the table's rows."""
+    was_stale = table._stale_host & cleared
+    table._stale_count -= int(np.count_nonzero(was_stale))
+    table._stale_host &= ~cleared
+    table._bump()
+    extern = [h for h in table.on_refresh if not getattr(h, "_backend_hook", False)]
+    if extern and cleared.any():
+        ids_np = np.nonzero(cleared)[0].astype(np.int32)
+        for h in extern:
+            h(ids_np)
+
+
+def _loader_rows(table, n_rows: int) -> torch.Tensor:
+    """Every row of a bound table through its DEVICE loader
+    (``fn(arange(n_rows), *args)``), as a contiguous tensor with the
+    table's shape and dtype on its device."""
+    fn = table.device_compute_fn
+    args = tuple(table.device_loader_args()) if table.device_loader_args is not None else ()
+    values = table._values
+    ids = torch.arange(n_rows, dtype=torch.int64, device=values.device)
+    fresh = torch.as_tensor(fn(ids, *args), device=values.device)
+    if fresh.dtype != values.dtype:
+        fresh = fresh.to(values.dtype)
+    if fresh.shape != values.shape:
+        fresh = fresh.expand(values.shape)
+    return fresh.contiguous()
 
 
 class TpuGraphBackend:
@@ -90,10 +200,12 @@ class TpuGraphBackend:
         # nids whose invalidation is CURRENTLY being applied from a device
         # wave — only those skip the journal echo
         self._applying_ids: set = set()
-        # columnar row blocks: none until bind_table_rows is ported
-        self._row_blocks: list = []
+        # columnar row blocks (bind_table_rows): sorted by base, with flat
+        # base/end arrays for O(log blocks) wave partitioning
+        self._row_blocks: List[RowBlock] = []
         self._block_bases = np.empty(0, dtype=np.int64)
         self._block_ends = np.empty(0, dtype=np.int64)
+        self._block_by_table: Dict[int, RowBlock] = {}
         #: the nonblocking wave pipeline (a later slice): None while the hub
         #: runs blocking; ``Computed.invalidate_eventually`` reads it
         self.pipeline = None
@@ -181,9 +293,25 @@ class TpuGraphBackend:
             nid = self._id_by_input.get(input)
             old = None
             if nid is None:
-                nid = int(self.graph.add_nodes(1)[0])
-                self._id_by_input[input] = nid
-                self._ensure_host_masks()
+                nid = self._row_nid_for_input(input)
+                if nid is not None:
+                    # ADOPTION: the scalar node materializes an EXISTING
+                    # columnar row node (row r of a bound table IS node
+                    # base+r), so the two views cascade as one logical node.
+                    # No epoch bump (the block's declared in-edges belong to
+                    # every version until redeclared), but a fresh value
+                    # supersedes any device invalid bit — left set, it would
+                    # stop future cascades at this node.
+                    self._journal.append(("cpack", np.array([nid], np.int32)))
+                    self._id_by_input[input] = nid
+                    if self._pending[nid]:
+                        self._pending[nid] = False
+                        old_ref = self._computed_by_id.get(nid)
+                        old = old_ref() if old_ref is not None else None
+                else:
+                    nid = int(self.graph.add_nodes(1)[0])
+                    self._id_by_input[input] = nid
+                    self._ensure_host_masks()
             else:
                 # recompute: next epoch; stale in-edges die, invalid clears.
                 # A pending device invalidation of the PREVIOUS version must
@@ -191,6 +319,15 @@ class TpuGraphBackend:
                 # otherwise the displaced node would read as consistent
                 # again once the bit is gone.
                 self._journal.append(("bump", nid))
+                blk = self._block_of_nid(nid)
+                if blk is not None:
+                    # a row node's declared in-edges survive the bump: they
+                    # are re-declared at the new epoch ("until redeclared")
+                    ins = blk.declared_in_srcs(nid)
+                    if len(ins):
+                        self._journal.append(
+                            ("epack", (ins.copy(), np.full(len(ins), nid, np.int32)))
+                        )
                 if self._pending[nid]:
                     self._pending[nid] = False
                     old_ref = self._computed_by_id.get(nid)
@@ -207,6 +344,34 @@ class TpuGraphBackend:
                 old.invalidate_local(_detail=LAZY_WAVE_DETAIL)
             finally:
                 self._applying_ids.discard(nid)
+
+    def _row_nid_for_input(self, input) -> Optional[int]:
+        """The columnar node id these call args map to, if the input's
+        method is table-backed AND its table is bound to a row block."""
+        if not self._block_by_table:
+            return None
+        md = getattr(input, "method_def", None)
+        service = getattr(input, "service", None)
+        if md is None or service is None or md.table is None:
+            return None
+        table = md.peek_table(service)
+        if table is None:
+            return None
+        blk = self._block_by_table.get(id(table))
+        if blk is None:
+            return None
+        row = md.row_for_args(input.args, table)
+        if row is None or not (0 <= row < blk.n_rows):
+            return None
+        return blk.base + int(row)
+
+    def _block_of_nid(self, nid: int) -> Optional[RowBlock]:
+        if not self._block_bases.size:
+            return None
+        i = int(np.searchsorted(self._block_bases, nid, side="right")) - 1
+        if i >= 0 and nid < self._block_ends[i]:
+            return self._row_blocks[i]
+        return None
 
     def _on_edge_added(self, dependent: "Computed", used: "Computed") -> None:
         with self._lock:
@@ -443,7 +608,18 @@ class TpuGraphBackend:
         if len(newly_ids) == 0:
             return
         if self._block_bases.size:
-            _not_ported("row-block apply", "A.3 (columnar memo table)")
+            # columnar tier: rows of bound tables go stale VECTORIZED (O(wave)
+            # numpy, not O(wave) Python objects); scalar twins still ride the
+            # pending/watched tiers below through the shared node id
+            idx = np.searchsorted(self._block_bases, newly_ids, side="right") - 1
+            in_block = (idx >= 0) & (newly_ids < self._block_ends[np.maximum(idx, 0)])
+            if in_block.any():
+                for bi in np.unique(idx[in_block]):
+                    blk = self._row_blocks[int(bi)]
+                    local = newly_ids[in_block & (idx == bi)] - blk.base
+                    blk.table._mark_stale_from_wave(local)
+                    for h in blk.table.on_wave_invalidate:
+                        h(np.asarray(local, dtype=np.int32))
         watched = newly_ids[self._watched[newly_ids]]
         self._pending[newly_ids] = True
         for hook in self.newly_hooks:
@@ -453,8 +629,16 @@ class TpuGraphBackend:
     def _apply_newly_mask(self, newly: np.ndarray) -> None:
         """Mask twin of the id path: same tiers, all-vectorized."""
         n = len(newly)
-        if self._row_blocks:
-            _not_ported("row-block apply", "A.3 (columnar memo table)")
+        for blk in self._row_blocks:
+            if blk.base >= n:
+                continue
+            sub = newly[blk.base : min(blk.end(), n)]
+            if sub.any():
+                blk.table._mark_stale_from_wave_mask(sub)
+                if blk.table.on_wave_invalidate:
+                    local = np.nonzero(sub)[0].astype(np.int32)
+                    for h in blk.table.on_wave_invalidate:
+                        h(local)
         self._pending[:n] |= newly
         watched = np.nonzero(newly & self._watched[:n])[0]
         for hook in self.newly_hooks:
@@ -477,21 +661,278 @@ class TpuGraphBackend:
             finally:
                 self._applying_ids.discard(node_id)
 
-    # ------------------------------------------------------------------ later slices
-    def bind_table_rows(self, *args, **kwargs):
-        _not_ported("bind_table_rows", "A.3 (columnar memo table)")
+    # ------------------------------------------------------------------ columnar ingest
+    def bind_table_rows(self, table, n_rows: Optional[int] = None) -> RowBlock:
+        """Register a MemoTable's dense key space as ONE contiguous block of
+        graph nodes (row ``r`` ⇔ node ``base+r``) — the vectorized live
+        ingest path. Bind at service setup, BEFORE scalar reads of the
+        method create standalone nodes (a scalar node created pre-bind keeps
+        its own node id and will not cascade as the row).
 
-    def declare_row_edges(self, *args, **kwargs):
-        _not_ported("declare_row_edges", "A.3 (columnar memo table)")
+        After binding:
+        - ``declare_row_edges`` declares dependency topology in bulk numpy;
+        - host-led ``table.invalidate(ids)`` mirrors to the device graph as
+          bulk invalid marks that cascade at the next flush;
+          ``table.refresh`` (or a ``read_batch`` that refreshes) clears the
+          rows' invalid bits — consistent again with NO epoch bump, so
+          declared topology survives value churn;
+        - device waves mark hit rows stale vectorized;
+        - scalar ``@compute_method`` nodes for the same keys ADOPT the row's
+          node id on registration (see ``_on_register``)."""
+        n = int(n_rows if n_rows is not None else table.n_rows)
+        if n > table.n_rows:
+            raise ValueError(f"n_rows {n} exceeds table rows {table.n_rows}")
+        if table.device.type != self.graph.device.type:
+            raise ValueError(f"the table lives on {table.device}, the graph on "
+                             f"{self.graph.device}")
+        with self._lock:
+            existing = self._block_by_table.get(id(table))
+            if existing is not None:
+                if existing.n_rows != n:
+                    raise ValueError(f"table already bound with {existing.n_rows} rows")
+                return existing
+            base = self.graph.n_nodes
+            self.graph.add_nodes(n)
+            self._ensure_host_masks()
+            blk = RowBlock(table, base, n)
+            self._row_blocks.append(blk)
+            self._row_blocks.sort(key=lambda b: b.base)
+            self._block_bases = np.array([b.base for b in self._row_blocks], dtype=np.int64)
+            self._block_ends = np.array([b.end() for b in self._row_blocks], dtype=np.int64)
+            self._block_by_table[id(table)] = blk
 
-    def cascade_rows_batch(self, *args, **kwargs):
-        _not_ported("cascade_rows_batch", "A.3 (columnar memo table)")
+        def on_inv(ids_np, _blk=blk):
+            ids64 = np.asarray(ids_np, np.int64)
+            if n < table.n_rows:  # partial bind: rows past the block are unmapped
+                ids64 = ids64[ids64 < _blk.n_rows]
+            if ids64.size == 0:
+                return
+            with self._lock:
+                # icasc, not a bare mark: a host-led table invalidation must
+                # CASCADE through the declared row topology (which exists only
+                # on the device); flush runs the expansion wave in journal
+                # order, so a refresh that follows still clears its own rows
+                self._journal.append(("icasc", (_blk.base + ids64).astype(np.int32)))
 
-    def refresh_block_on_device(self, *args, **kwargs):
-        _not_ported("refresh_block_on_device", "A.3 (columnar memo table)")
+        def on_ref(ids_np, _blk=blk):
+            ids64 = np.asarray(ids_np, np.int64)
+            if n < table.n_rows:
+                ids64 = ids64[ids64 < _blk.n_rows]
+            if ids64.size == 0:
+                return
+            with self._lock:
+                self._journal.append(("cpack", (_blk.base + ids64).astype(np.int32)))
 
-    def cascade_rows_lanes(self, *args, **kwargs):
-        _not_ported("cascade_rows_lanes", "A.3 (columnar memo table: row-block lane bursts)")
+        on_ref._backend_hook = True  # refresh_block_on_device subsumes it
+        table.on_invalidate.append(on_inv)
+        table.on_refresh.append(on_ref)
+        return blk
+
+    def declare_row_edges(self, src_block: RowBlock, src_rows, dst_block: RowBlock,
+                          dst_rows) -> int:
+        """Declare dependency edges used(src row) → dependent(dst row) in
+        bulk — the columnar analogue of per-``await`` edge capture. One
+        journal entry per call regardless of edge count; flush appends them
+        to the device CSR in one numpy splice. Declared edges persist across
+        value churn and are re-declared automatically when a row's scalar
+        twin recomputes. Declarations ACCUMULATE — to change a row's
+        dependency set, call :meth:`clear_declared_row_edges` first."""
+        src_rows = self._check_rows(src_block, src_rows).astype(np.int64)
+        dst_rows = self._check_rows(dst_block, dst_rows).astype(np.int64)
+        if src_rows.shape != dst_rows.shape:
+            raise ValueError("src_rows and dst_rows must have the same shape")
+        if src_rows.size == 0:
+            return 0
+        src_nids = (src_block.base + src_rows).astype(np.int32)
+        dst_nids = (dst_block.base + dst_rows).astype(np.int32)
+        with self._lock:
+            self._journal.append(("epack", (src_nids, dst_nids)))
+            dst_block._decl_src.append(src_nids)
+            dst_block._decl_dst.append(dst_nids)
+        return int(src_nids.size)
+
+    @staticmethod
+    def _check_rows(block: RowBlock, rows) -> np.ndarray:
+        """Rows → int32 array, validated against the block: a silent
+        out-of-range row would seed a cascade at a FOREIGN node id."""
+        rows = np.asarray(rows, dtype=np.int64)
+        if rows.size and (int(rows.min()) < 0 or int(rows.max()) >= block.n_rows):
+            raise ValueError(f"rows out of range [0, {block.n_rows})")
+        return rows.astype(np.int32)
+
+    def clear_declared_row_edges(self, block: RowBlock, rows) -> None:
+        """The 'redeclare' half of the declared-edge lifetime: drop declared
+        edges INTO these rows from the declaration log AND kill their live
+        in-edges (an epoch bump — the recompute rule: dependencies changed).
+        Follow with :meth:`declare_row_edges` for the new topology."""
+        rows = self._check_rows(block, rows)
+        nids = (block.base + rows.astype(np.int64)).astype(np.int32)
+        with self._lock:
+            new_src, new_dst = [], []
+            for s_arr, d_arr in zip(block._decl_src, block._decl_dst):
+                keep = ~np.isin(d_arr, nids)
+                if keep.all():
+                    new_src.append(s_arr)
+                    new_dst.append(d_arr)
+                elif keep.any():
+                    new_src.append(s_arr[keep])
+                    new_dst.append(d_arr[keep])
+            block._decl_src, block._decl_dst = new_src, new_dst
+            block._csr = None
+            for nid in set(int(x) for x in nids):
+                self._journal.append(("bump", nid))
+
+    def cascade_rows_batch(self, block: RowBlock, rows) -> int:
+        """Invalidate + cascade table rows in ONE union wave (the
+        command-completion shape for table-backed services). The wave
+        application marks hit rows stale in bulk and runs the two-tier host
+        apply for scalar twins. Returns the total newly invalidated."""
+        self.flush()
+        nids = block.base + self._check_rows(block, rows)
+        cause, wave_seq = self._begin_wave()
+        t0 = time.perf_counter()
+        total, newly_ids = self._wave_union([nids.tolist()])
+        t1 = time.perf_counter()
+        self._apply_newly(newly_ids)
+        self.waves_run += 1
+        self.device_invalidations += total
+        self._profile_wave("union", len(nids), cause, t0, t1, len(newly_ids), wave_seq)
+        return total
+
+    @staticmethod
+    def _device_loader_of(table, block: RowBlock, what: str):
+        if table.device_compute_fn is None:
+            raise TypeError(
+                "table has no device loader — declare TableBacking(device_batch=...) "
+                f"or use {'table.refresh()' if what == 'refresh' else 'read_batch()'}"
+            )
+        if block.n_rows != table.n_rows:
+            raise ValueError(
+                f"{what} on the device requires a FULL table bind (block covers "
+                f"{block.n_rows} of {table.n_rows} rows)"
+            )
+
+    def refresh_block_on_device(self, block: RowBlock) -> int:
+        """Recompute ALL stale rows of a bound table ON THE DEVICE, from the
+        device-resident invalid state, through the table's DEVICE loader
+        (``TableBacking(device_batch=...)``): the loader computes every row,
+        and the ``block_refresh`` kernel takes the rows whose node is
+        invalid, marks them valid and clears the block's invalid bits — zero
+        host value traffic. Host bookkeeping (stale counts, versions) comes
+        from the host invalid mirror, which is cleared in the same call.
+        Returns rows refreshed.
+
+        Semantics = ``table.refresh(stale_rows)`` for every row the graph
+        holds invalid in this block: values recomputed, rows valid again
+        with NO epoch bump (declared topology survives), scalar twins stay
+        pending-invalid until their next read. Rows stale on the TABLE but
+        not invalid in the graph refresh on next read."""
+        self.flush()
+        table = block.table
+        self._device_loader_of(table, block, "refresh")
+        dg = self.graph
+        g = dg.device_arrays()
+        update_valid = not table._valid_dev_dirty
+        fresh = _loader_rows(table, block.n_rows)
+        # valid_mask (not the raw tensor) applies any deferred small updates
+        # first; with a full materialization pending, validity is left alone
+        valid = table.valid_mask if update_valid else None
+        # the words are the graph's own (every mirror route reads
+        # device_arrays().invalid at its call): cleared in place
+        block_refresh(g.invalid, table._values, fresh, valid, block.base)
+        del fresh
+        cleared = dg._h_invalid[block.base : block.end()].copy()
+        n_cleared = int(np.count_nonzero(cleared))
+        if n_cleared == 0:
+            return 0
+        dg._h_invalid[block.base : block.end()] = False
+        dg.invalid_version += 1
+        # non-backend on_refresh subscribers get the refreshed ids; the
+        # backend's own hook is skipped — the kernel already cleared the bits
+        _finish_block_refresh_bookkeeping(table, cleared)
+        return n_cleared
+
+    def warm_block_on_device(self, block: RowBlock) -> int:
+        """Load EVERY row of a bound table through its DEVICE loader in one
+        call — the cold-start warm. Graph invalid state is untouched (a
+        fresh table has nothing invalid to clear). Returns the rows that
+        were stale."""
+        table = block.table
+        self._device_loader_of(table, block, "warm")
+        if self.graph._h_invalid[block.base : block.end()].any():
+            # warming would zero table staleness while the graph's invalid
+            # bits stayed set, silently pre-blocking those rows in bursts
+            raise RuntimeError(
+                "block has outstanding invalid marks — use "
+                "refresh_block_on_device() (warm is for cold tables)"
+            )
+        # copied into the table's own tensor: the loader may hand back its
+        # own state, which later in-place refreshes must never write
+        table._values.copy_(_loader_rows(table, block.n_rows))
+        table._valid_dev = torch.ones(block.n_rows, dtype=torch.bool, device=table.device)
+        table._valid_dev_dirty = False
+        table._valid_pending.clear()
+        table._valid_pending_n = 0
+        n_stale = table._stale_count
+        table._stale_host[:] = False
+        table._stale_count = 0
+        table._bump()
+        extern = [h for h in table.on_refresh if not getattr(h, "_backend_hook", False)]
+        if extern:
+            all_ids = np.arange(block.n_rows, dtype=np.int32)
+            for h in extern:
+                h(all_ids)
+        return n_stale
+
+    def cascade_rows_batch_seq(self, block: RowBlock, row_batches) -> np.ndarray:
+        """M :meth:`cascade_rows_batch` calls as one sequenced chain, each
+        batch cascading against the state the previous batches left
+        (identical final state and counts): one lat-mirror chain when the
+        lat mirror serves them, a host loop otherwise. Returns per-batch
+        newly counts int64[M]."""
+        self.flush()
+        seed_lists = [
+            (block.base + self._check_rows(block, rows)).tolist() for rows in row_batches
+        ]
+        cause, seqs = self._begin_wave_span(len(seed_lists))
+        lat_before = self.graph.lat_waves
+        t0 = time.perf_counter()
+        counts, union_ids = self._wave_union_seq(seed_lists)
+        t1 = time.perf_counter()
+        self._apply_newly(union_ids)
+        self.waves_run += len(seed_lists)
+        self.device_invalidations += int(counts.sum())
+        fused = self.graph.lat_waves > lat_before  # lat chain vs host loop
+        self._profile_wave(
+            "seq", sum(len(s) for s in seed_lists), cause, t0, t1, int(counts.sum()), seqs[0],
+            groups=len(seed_lists), fused_depth=len(seed_lists), seq_span=(seqs[0], seqs[-1]),
+            dispatches=1 if fused else len(seed_lists),
+        )
+        return counts
+
+    def cascade_rows_lanes(self, block: RowBlock, row_groups) -> np.ndarray:
+        """Lane-packed columnar burst: each row group cascades independently
+        in its own bit lane (32 groups per packed word, one topo-mirror
+        sweep per ``_LANES_CHUNK`` groups) seeded DIRECTLY by table rows.
+        Returns per-group newly counts."""
+        self.flush()
+        seed_lists = [(block.base + self._check_rows(block, g)).tolist() for g in row_groups]
+        n_stages = max(-(-len(seed_lists) // self._LANES_CHUNK), 1)
+        cause, seqs = self._begin_wave_span(n_stages)
+        self.graph.last_lanes_info = None
+        t0 = time.perf_counter()
+        counts, union_mask = self._wave_lanes(seed_lists)
+        t1 = time.perf_counter()
+        self._apply_newly(union_mask)
+        self.waves_run += len(seed_lists)
+        self.device_invalidations += int(counts.sum())
+        info = self.graph.last_lanes_info or {}
+        self._profile_wave(
+            "lanes", sum(len(s) for s in seed_lists), cause, t0, t1, int(counts.sum()), seqs[0],
+            groups=len(seed_lists), fused_depth=info.get("depth"),
+            seq_span=(seqs[0], seqs[-1]), dispatches=info.get("dispatches"),
+        )
+        return counts
 
     def build_topo_mirror(self, k: int = 4, cap: int = 65536) -> dict:
         """Build/refresh the topo and lat mirrors of the live graph:
@@ -549,11 +990,11 @@ class TpuGraphBackend:
     def enable_super_rounds(self, *args, **kwargs):
         _not_ported("enable_super_rounds", "A.5 (resident live loop)")
 
+    def cascade_rows_lanes_refresh_chain(self, *args, **kwargs):
+        _not_ported("cascade_rows_lanes_refresh_chain", "A.5 (the fused burst→refresh chain)")
+
     def attach_watchdog(self, *args, **kwargs):
         _not_ported("attach_watchdog", "A.8 (diagnostics and resilience)")
-
-    def cascade_rows_batch_sharded(self, *args, **kwargs):
-        _not_ported("cascade_rows_batch_sharded", "A.3 (columnar memo table)")
 
     def packed_mirror(self, *args, **kwargs):
         _not_ported("packed_mirror", "A.9 after A.4 (packed mesh waves need the ELL and pull waves)")
@@ -655,6 +1096,13 @@ class TpuGraphBackend:
         if not seeds:
             return fallback
         return self._union_sharded_nids(seeds, mesh) + fallback
+
+    def cascade_rows_batch_sharded(self, block: RowBlock, rows, mesh=None) -> int:
+        """:meth:`cascade_rows_batch` ON THE MESH: table rows seed a union
+        wave expanded over the mesh, applied back to the live hub and
+        tables like the single-device path."""
+        nids = block.base + self._check_rows(block, rows)
+        return self._union_sharded_nids(nids.tolist(), mesh)
 
     def _union_sharded_nids(self, seeds: List[int], mesh=None) -> int:
         sharded = self.sharded_mirror(mesh=mesh)

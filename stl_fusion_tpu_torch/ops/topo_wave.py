@@ -73,11 +73,9 @@ __all__ = [
 
 #: topo_sweep kernel launches since the last reset (one per non-empty level per sweep)
 launches = 0
-#: lane_finish kernel launches since the last reset (one per lane burst)
+#: lane_finish CUDA launches since the last reset (one per lane burst at a
+#: power-of-two W <= 32, the main path's; one per column chunk + 1 otherwise)
 lane_finish_launches = 0
-
-#: largest ``k`` the kernel takes (``csrc/topo_sweep.cu``: kMaxK)
-MAX_K = 8
 
 
 class TopoGraph(NamedTuple):
@@ -359,9 +357,9 @@ def topo_sweep(level_starts, garrays: TopoGraphArrays, seed_bits: Optional[torch
     w = 1 if inv.dim() == 1 else inv.shape[1]
     vec4 = w % 4 == 0 and inv.data_ptr() % 16 == 0 and (
         seed_bits is None or seed_bits.data_ptr() % 16 == 0)
-    if k > MAX_K or w // (4 if vec4 else 1) > 256:
-        raise ValueError(f"topo_sweep: the kernel takes k <= {MAX_K} and at most 256 "
-                         f"threads a row (W <= 1024 in int4 groups, else W <= 256)")
+    if w // (4 if vec4 else 1) > 256:
+        raise ValueError("topo_sweep: the kernel takes at most 256 threads a row "
+                         "(W <= 1024 in int4 groups, else W <= 256)")
     counts = torch.zeros(w, dtype=torch.int32, device=inv.device)
     starts = _starts_array(tuple(level_starts))
     made = ctypes.c_int(0)
@@ -584,16 +582,17 @@ def lane_finish(final_bits, is_real, perm_clipped, g_invalid):
         return lane_finish_plain(fb, is_real, perm_clipped, g_invalid)
     if device.type != "cuda":
         raise ValueError(f"lane_finish: unsupported device {device}")
-    if not (1 <= w <= 32 and w & (w - 1) == 0):
-        raise ValueError(f"lane_finish: the kernel takes W a power of two <= 32 words a row, "
-                         f"got {w}")
+    if w < 1:
+        raise ValueError("lane_finish: the kernel takes rows of at least one word")
     lane_counts = torch.zeros(32 * w, dtype=torch.int32, device=device)
     union_count = torch.zeros(1, dtype=torch.int32, device=device)
     newly = torch.zeros_like(g_invalid)
+    made = ctypes.c_int(0)
     _build.launch("lane_finish", "lane_finish_launch", fb.data_ptr(), is_real.data_ptr(),
                   perm_clipped.data_ptr(), g_invalid.data_ptr(), newly.data_ptr(),
-                  lane_counts.data_ptr(), union_count.data_ptr(), n, w)
-    lane_finish_launches += 1
+                  lane_counts.data_ptr(), union_count.data_ptr(), n, w, g_invalid.shape[0],
+                  ctypes.addressof(made))
+    lane_finish_launches += made.value
     return lane_counts, union_count[0], newly
 
 

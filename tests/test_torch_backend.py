@@ -137,10 +137,12 @@ async def test_two_tier_application(world):
 def test_backend_later_slices_raise():
     hub = pcore.FusionHub()
     backend = pgraph.TpuGraphBackend(hub, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.3"):
-        backend.bind_table_rows(None)
-    with pytest.raises(NotImplementedError, match="A.3"):
-        backend.cascade_rows_lanes(None, [])
+    # row blocks (A.3) are ported; the fused burst→refresh chain over them
+    # is the resident live loop's (A.5)
+    with pytest.raises(NotImplementedError, match="A.5"):
+        backend.cascade_rows_lanes_refresh_chain(None, [])
+    with pytest.raises(NotImplementedError, match="A.8"):
+        backend.attach_watchdog(None)
     with pytest.raises(NotImplementedError, match="A.5"):
         backend.enable_super_rounds()
     with pytest.raises(NotImplementedError, match="A.5"):

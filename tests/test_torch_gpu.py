@@ -365,11 +365,113 @@ def test_lane_finish_kernel_matches_plain(card, words, empty):
 
 
 def test_lane_finish_rejects_widths_it_cannot_take(card):
+    """Any W >= 1 is taken (ROADMAP C.1); rows of no words are not."""
     from stl_fusion_tpu_torch.ops import topo_wave as tpw
 
     bits, is_real, perm, g_inv = _lane_finish_inputs(card, 3, 1, n_real=100, n_virtual=10)
-    with pytest.raises(ValueError, match="power of two"):
-        tpw.lane_finish(bits, is_real, perm, g_inv)
+    with pytest.raises(ValueError, match="at least one word"):
+        tpw.lane_finish(bits[:, :0].contiguous(), is_real, perm, g_inv)
+
+
+@pytest.mark.parametrize("words", [3, 48, 64])
+def test_lane_finish_kernel_any_width_matches_plain(card, words):
+    """ROADMAP C.1: widths that are not a power of two <= 32 run as column
+    chunks of power-of-two widths plus a commit launch; lane counts, union
+    count, newly mask and the committed dense words equal the plain
+    version's."""
+    from stl_fusion_tpu_torch.ops import topo_wave as tpw
+
+    bits, is_real, perm, g_inv = _lane_finish_inputs(card, words, 5 + words)
+    g_plain = g_inv.clone()
+    want = tpw.lane_finish_plain(bits, is_real, perm, g_plain)
+    before = tpw.lane_finish_launches
+    got = tpw.lane_finish(bits, is_real, perm, g_inv)
+    torch.cuda.synchronize()
+    chunks = {3: 2, 48: 2, 64: 2}[words]
+    assert tpw.lane_finish_launches == before + chunks + 1
+    assert torch.equal(got[0], want[0]) and int(got[1]) == int(want[1]) > 0
+    assert torch.equal(got[2], want[2]) and torch.equal(g_inv, g_plain)
+    assert int(got[0][32 * (words - 1) + 31]) > 0  # the last word's sign-bit lane
+
+
+def _fill_slots(g, rng, n_rows=3000):
+    """Fill every free in-slot of ``n_rows`` random rows of levels >= 1 with
+    sources from lower levels, 80% live (epoch 0) and 20% dead (epoch 5):
+    the builder leaves slots past a row's in-degree (at most 3 here) free."""
+    from stl_fusion_tpu_torch.ops import topo_wave as tpw
+
+    starts = np.asarray(g.level_starts)
+    in_src, edge_epoch = g.in_src.copy(), g.edge_epoch.copy()
+    for r in rng.choice(np.arange(starts[1], starts[-1]), n_rows, replace=False):
+        if not g.is_real[r]:
+            continue
+        lvl = np.searchsorted(starts, r, side="right") - 1
+        free = np.nonzero(in_src[r] == g.n_tot)[0]
+        in_src[r, free] = rng.integers(0, starts[lvl], size=free.size)
+        edge_epoch[r, free] = np.where(rng.random(free.size) < 0.8, 0, 5)
+    return g._replace(in_src=in_src, edge_epoch=edge_epoch)
+
+
+@pytest.mark.parametrize("k", [9, 10, 17])
+def test_topo_sweep_kernel_wide_rows_match_plain(card, k):
+    """ROADMAP C.2: rows of more than 8 in-slots (``build_topo_mirror(k=8)``
+    gives 8 + 2 slack) sweep in chunks of 8 slots; bits and counts equal the
+    plain version's, with dead slots (epoch mismatch) in every chunk."""
+    from stl_fusion_tpu_torch.ops import topo_wave as tpw
+
+    rng = np.random.default_rng(k)
+    src, dst = power_law_dag(20000, avg_degree=3, seed=k)
+    g = tpw.build_topo_graph(src, dst, 20000, k=k - 2, slack=2)
+    assert g.in_src.shape[1] == k
+    g = _fill_slots(g, rng)
+    assert (g.in_src[:, 8:] != g.n_tot).any()
+    ga = tpw.topo_graph_arrays(g, card)
+    for words in (1, 16):
+        lists = [rng.choice(20000, size=30, replace=False) for _ in range(32 * words)]
+        seeds = torch.from_numpy(tpw.topo_seeds_to_bits(g, lists, words=words)).to(card)
+        epochs = tpw.topo_init_state(g.n_tot, device=card).node_epoch
+        shape = (g.n_tot + 1,) if words == 1 else (g.n_tot + 1, words)
+        states = [tpw.TopoState(epochs, torch.zeros(shape, dtype=torch.int32, device=card))
+                  for _ in range(2)]
+        _, want = tpw.topo_sweep_plain(g.level_starts, ga, seeds, states[0], 0)
+        _, got = tpw.topo_sweep(g.level_starts, ga, seeds, states[1], 0)
+        torch.cuda.synchronize()
+        assert torch.equal(states[1].invalid_bits, states[0].invalid_bits)
+        assert torch.equal(got, want) and int(got.sum()) > 0
+
+
+def _refresh_case(card, base, n_rows, row_shape, dtype, seed):
+    rng = np.random.default_rng(seed)
+    n_bits = base + n_rows + 100
+    inv = rng.random(n_bits) < 0.4
+    words = torch.from_numpy(
+        np.packbits(np.concatenate([inv, np.zeros((-n_bits) % 32, bool)]),
+                    bitorder="little").view(np.int32).copy()).to(card)
+    values = torch.from_numpy(rng.integers(-50, 50, (n_rows, *row_shape)).astype(dtype)).to(card)
+    fresh = torch.from_numpy(rng.integers(100, 200, (n_rows, *row_shape)).astype(dtype)).to(card)
+    valid = torch.from_numpy(rng.random(n_rows) < 0.5).to(card)
+    return words, values, fresh, valid
+
+
+@pytest.mark.parametrize("base,n_rows", [(0, 4096), (37, 5000), (64, 1), (5, 20)])
+@pytest.mark.parametrize("row_shape,dtype", [((), np.float32), ((3,), np.int32),
+                                             ((4,), np.float32), ((5,), np.uint8)])
+@pytest.mark.parametrize("update_valid", [True, False])
+def test_block_refresh_kernel_matches_plain(card, base, n_rows, row_shape, dtype, update_valid):
+    """Aligned and unaligned bases and ends, 16-, 4- and 1-byte row chunks:
+    values, validity and the words (bits outside the block untouched) equal
+    the plain version's; one launch."""
+    from stl_fusion_tpu_torch.ops import block_refresh as br
+
+    words, values, fresh, valid = _refresh_case(card, base, n_rows, row_shape, dtype,
+                                                base + n_rows)
+    pw, pv, pvalid = words.clone(), values.clone(), valid.clone()
+    br.block_refresh_plain(pw, pv, fresh, pvalid if update_valid else None, base)
+    before = br.launches
+    br.block_refresh(words, values, fresh, valid if update_valid else None, base)
+    torch.cuda.synchronize()
+    assert br.launches == before + 1
+    assert torch.equal(words, pw) and torch.equal(values, pv) and torch.equal(valid, pvalid)
 
 
 def test_topo_sweep_changed_flag_sees_virtual_rows(card):

@@ -86,3 +86,17 @@ def test_scan_covers_the_mirror_modules_and_the_packer_is_the_ports_own():
     for f in PKG.rglob("*.py"):
         assert "native" not in {root for _, root in _import_roots(f)}
         assert "stl_fusion_tpu/native" not in f.read_text(), f
+
+
+def test_scan_covers_the_row_block_slice():
+    """The import scan reaches the columnar slice: ``state/``, the memo
+    table and its bridge, the block refresh and the live twin, and the
+    block refresh kernel's source is the port's own."""
+    from stl_fusion_tpu_torch.ops import _build
+
+    scanned = {f.relative_to(PKG).as_posix() for f in PKG.rglob("*.py")}
+    assert {"state/state.py", "state/mutable.py", "state/computed_state.py", "state/delayer.py",
+            "state/factory.py", "ops/memo_table.py", "ops/memo_bridge.py",
+            "ops/block_refresh.py", "live_path.py"} <= scanned
+    src = _build.CSRC / _build.KERNELS["block_refresh"][0]
+    assert src.is_file() and src.resolve().parent == (PKG / "csrc").resolve()

@@ -114,6 +114,31 @@ def test_lane_burst_chunking_and_pre_invalid_seeds_conduct():
     assert counts[5] == dense.run_waves_union([[0]], mirror="off")[0] > 0
 
 
+def test_lane_burst_at_64_words_matches_jax():
+    """ROADMAP C.1: ``max_words=64`` with 1,100 groups packs 64 words a
+    row (2,048 lanes: lane_finish at W = 64, which the card's kernel takes
+    in column chunks); counts and the union equal JAX's, and every 97th
+    group equals its own dense wave."""
+    rng = np.random.default_rng(11)
+    n = 600
+    src, dst = random_dag(rng, n)
+    graphs = _pair(n, src, dst, bumped=rng.choice(n, 30, replace=False),
+                   pre_invalid=rng.choice(n, 40, replace=False))
+    groups = [rng.choice(n, size=int(rng.integers(1, 4)), replace=False).tolist()
+              for _ in range(1100)]
+    counts, mask = _lanes(graphs, groups, max_words=64)
+    assert graphs[1].mirror_bursts == 1 and graphs[1].last_lanes_info == {
+        "depth": 1, "dispatches": 1}
+    assert counts[1099] >= 1 and mask.any()
+    for gi in range(0, 1100, 97):
+        dense = DeviceGraph(node_capacity=n, edge_capacity=len(src) + 64, device="cpu")
+        dense.add_nodes(n)
+        dense.add_edges(src, dst)
+        dense.bump_epochs(graphs[1]._h_node_epoch[:n].nonzero()[0].astype(np.int32))
+        dense.mark_invalid(np.nonzero(graphs[0]._h_invalid[:n] & ~mask[:n])[0])
+        assert counts[gi] == dense.run_waves_union([groups[gi]], mirror="off")[0], gi
+
+
 def test_lane_burst_on_a_patched_mirror_and_bad_seeds():
     rng = np.random.default_rng(5)
     n = 300

@@ -67,6 +67,31 @@ def test_topo_and_lat_routes_match_jax(seed):
     assert pg.lat_waves >= 4 and pg.mirror_bursts == 8
 
 
+def test_wide_mirror_k8_matches_jax():
+    """ROADMAP C.2: ``build_topo_mirror(k=8)`` gives rows of k = 8 + 2 slack
+    = 10 in-slots (past the card kernel's 8-slot chunk); topo-sized and
+    lat-sized bursts, before and after a patched recompute, equal JAX's."""
+    graphs, src, dst = _pair(1500, 21)
+    jg, pg = graphs
+    for g in graphs:
+        g.build_topo_mirror(k=8)
+    assert pg._topo_mirror["h_in_src"].shape[1] == 10
+    rng = np.random.default_rng(21)
+    for trial in range(6):
+        if trial == 3:
+            for g in graphs:  # a recompute with its in-edges recaptured, patched in
+                v = int(dst[len(dst) // 2])
+                g.bump_epochs(np.array([v], np.int32))
+                g.add_edges(src[dst == v], dst[dst == v])
+        size = 3 if trial % 3 == 2 else 400
+        _union(graphs, rng.choice(1500, size=size, replace=False).tolist())
+        assert _routes(pg) == _routes(jg)
+        for g in graphs:
+            g.clear_invalid()
+    assert pg.mirror_patches == jg.mirror_patches == 1
+    assert pg.mirror_rebuilds == jg.mirror_rebuilds == 1
+
+
 def test_pre_invalid_seeds_conduct_on_both_routes():
     graphs, src, _ = _pair(300, 5)
     for g in graphs:

@@ -553,8 +553,12 @@ def test_wave_expand_takes_a_global_frontier_and_local_words():
 
 def test_backend_mesh_slices_still_raise():
     backend = pgraph.TpuGraphBackend(pcore.FusionHub(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A.3"):
-        backend.cascade_rows_batch_sharded(None, [0])
+    # the row-block mesh cascade is ported (A.3): a bound row seeds a mesh wave
+    from stl_fusion_tpu_torch.ops.memo_table import MemoTable
+
+    block = backend.bind_table_rows(
+        MemoTable(4, lambda ids: np.asarray(ids, np.float32), device="cpu"))
+    assert backend.cascade_rows_batch_sharded(block, [0]) == 1
     with pytest.raises(NotImplementedError, match="A.4"):
         backend.packed_mirror()
     with pytest.raises(NotImplementedError, match="A.9"):
