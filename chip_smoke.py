@@ -69,6 +69,16 @@ user calls. Phases, each printing one JSON line:
    kernel) and a 512-group ``cascade_rows_lanes`` burst. Every refresh and
    burst is held exactly (see :func:`phase_live`); ``read_batch`` of 1M
    device ids equals ``base[ids]``; one ``live_10m_round`` line a round;
+10b. ``live_sr_10m`` — on the same stack after the blocking loop, the
+   twin's super-round loop (``perf/live_path.py``'s default: 6 rounds at
+   depth 3 after an untimed warm, each super-round ONE replay of a captured
+   CUDA graph of ``topo_sweep``, ``lane_finish`` and ``block_refresh``) and
+   its chain loop (3 rounds); the first super-round held exactly against 3
+   sequential burst + refresh pairs; no eager round; each captured graph's
+   launches per replay as expected; one ``live_sr_10m_superround`` line per
+   super-round (host ms and its split, device ms around the replay), then
+   ``live_inv_per_s`` of each mode, occupancy, host stall, captures and
+   peak memory;
 11. ``kernels`` — every kernel form against its plain PyTorch version on the
    card, exact: ``or_popcount``; ``topo_sweep`` (the whole topo_10m sweep,
    its widest level alone, the lane burst's sweep on the churned mirror,
@@ -85,13 +95,22 @@ user calls. Phases, each printing one JSON line:
    function where there is one (the ring: the concatenation copied into
    all ``n`` rows; ``torch.cat`` alone is recorded beside it).
 
-The main path is five paths, each driven with every kernel's launch count
+The whole script runs with ``FUSION_MIRROR_CACHE`` set to a fresh temporary
+directory outside the checkout (removed at the end): phases 6 and 10 build
+their 10M mirror (a miss, saved in the background), then build it again,
+which loads the entry; the loaded tables must equal the built ones, and the
+phase's checks run on the loaded mirror (``mirror_cache``: the cold build's
+and the load's seconds).
+
+The main path is six paths, each driven with every kernel's launch count
 set to 0 just before it and read just after: phases 3-4 (the dense wave)
 must launch ``or_popcount`` and ``wave_expand_merge``, phase 5 (the sharded
 wave) ``or_popcount``, ``wave_expand_shards`` and ``ring_all_gather``,
 phases 6-7 (the mirror) ``topo_sweep`` and no ``wave_expand``, phase 9 (the
 churn) ``topo_sweep`` and ``lane_finish``, phase 10 (the live loop)
-``topo_sweep``, ``lane_finish`` and ``block_refresh``. Any
+``topo_sweep``, ``lane_finish`` and ``block_refresh``, and phase 10b (the
+super-round and chain loops, whose launches are CUDA graph replays: each
+replay adds the launches its capture recorded) the same three. Any
 failure raises and the script exits non-zero. The last lines are the kernel
 summary (the forms the main path runs), the ``nvidia-smi`` name and power
 limit, and
@@ -102,8 +121,11 @@ from __future__ import annotations
 
 import asyncio
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 #: H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s, and
@@ -117,8 +139,12 @@ GRAPH_SEED = 7
 N_SHARDS = 8
 
 
+#: the script's start on the host clock; each phase line carries its offset
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    print(json.dumps({**obj, "at_s": time.perf_counter() - T0}), flush=True)
 
 
 def sync(device) -> None:
@@ -152,6 +178,46 @@ def time_ms(fn, device, reps: int = 30, warmup: int = 3) -> float:
 def bound_ms(n_bytes: float, n_ops: float) -> tuple:
     t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_ops / PEAK_ALU_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def reload_mirror_from_cache(g, device, cold_s: float) -> dict:
+    """The disk mirror cache (``FUSION_MIRROR_CACHE``, set by :func:`main`):
+    wait for the background save of the mirror ``g`` just built (a miss),
+    drop it, and build again, which must LOAD the entry (a hit). The loaded
+    tables must equal the built ones; the phase then runs on the loaded
+    mirror. Returns the cold build's and the load's seconds."""
+    import numpy as np
+    import torch
+
+    built = g._topo_mirror
+    if g._mirror_cache_writer is None or g.mirror_cache_misses < 1:
+        raise AssertionError("the mirror build did not go through the disk cache")
+    t0 = time.perf_counter()
+    g._mirror_cache_writer.join(300)
+    save_wait_s = time.perf_counter() - t0
+    path = g._mirror_cache_path(built["fp"], built["k"])
+    if not os.path.exists(path):
+        raise AssertionError(f"the mirror cache entry was not saved ({path})")
+    hits0 = g.mirror_cache_hits
+    g._topo_mirror, g._mirror_deltas = None, None
+    t0 = time.perf_counter()
+    m = g.build_topo_mirror(k=built["k"], cap=built["cap"])
+    sync(device)
+    load_s = time.perf_counter() - t0
+    if g.mirror_cache_hits != hits0 + 1:
+        raise AssertionError("the rebuild of the same edge set missed the disk cache")
+    same = (np.array_equal(m["h_in_src"], built["h_in_src"])
+            and m["level_starts"] == built["level_starts"]
+            and np.array_equal(m["inv_perm"], built["inv_perm"])
+            and torch.equal(m["garrays"].in_src, built["garrays"].in_src)
+            and torch.equal(m["garrays"].is_real, built["garrays"].is_real)
+            and torch.equal(m["perm_clipped"], built["perm_clipped"])
+            and np.array_equal(m["lat"]["h_ell_dst"], built["lat"]["h_ell_dst"])
+            and torch.equal(m["lat"]["ell_epoch"], built["lat"]["ell_epoch"]))
+    if not same:
+        raise AssertionError("the mirror loaded from the disk cache differs from the built one")
+    return {"cold_build_s": cold_s, "load_s": load_s, **g.last_mirror_load,
+            "save_wait_s": save_wait_s, "entry_bytes": os.path.getsize(path)}
 
 
 # ------------------------------------------------------------------ oracle
@@ -633,7 +699,9 @@ def _nonempty_levels(level_starts) -> int:
 
 def phase_mirror(device, card: str, level: dict) -> dict:
     """The topo and lat mirrors of ``power_law_10m``'s graph (1% of nodes
-    epoch-bumped): ``build_topo_mirror``, then from a cleared state the
+    epoch-bumped): ``build_topo_mirror`` (a disk-cache miss), then the same
+    build again, loaded from the disk cache and equal to the built tables;
+    then, on the loaded mirror, from a cleared state the
     100,000-seed union as one topo sweep and the 256 shallow seeds as one
     lat wave, each EXACTLY the dense wave's result (the same oracle). The
     sweep must make one ``topo_sweep`` launch per non-empty level per pass
@@ -652,8 +720,11 @@ def phase_mirror(device, card: str, level: dict) -> dict:
     m = g.build_topo_mirror()
     sync(device)
     per_sweep = _nonempty_levels(m["level_starts"])
-    out = {"phase": "mirror_10m", "card": card, "nodes": n,
-           "build_topo_mirror_s": time.perf_counter() - t0, "topo_rows": m["n_tot"] + 1,
+    cold_s = time.perf_counter() - t0
+    cache = reload_mirror_from_cache(g, device, cold_s)
+    m = g._topo_mirror  # every check below runs on the loaded mirror
+    out = {"phase": "mirror_10m", "card": card, "nodes": n, "mirror_cache": cache,
+           "build_topo_mirror_s": cold_s, "topo_rows": m["n_tot"] + 1,
            "topo_k": int(m["garrays"].in_src.shape[1]), "levels": m["levels"],
            "launches_per_sweep": per_sweep, "lat_rows": m["lat"]["n_tot"] + 1,
            "lat_k": m["lat"]["k"], "waves": {}}
@@ -1060,7 +1131,38 @@ def phase_churn(device, card: str, level: dict) -> dict:
     return out
 
 
-def phase_live(device, card: str, level: dict) -> dict:
+LIVE_LOOPS = (("blocking", 6), ("superround", 6), ("chain", 3))
+
+
+def _live_state(backend, table) -> dict:
+    """What a live round reads and writes, copied: the graph's device words
+    and host mirror, the table's values, device validity (the tensor too)
+    and staleness, and the backend's pending mask."""
+    dg = backend.graph
+    return {"words": dg.device_arrays().invalid.clone(), "values": table._values.clone(),
+            "valid_t": table._valid_dev, "valid": table._valid_dev.clone(),
+            "dirty": table._valid_dev_dirty, "vpending": list(table._valid_pending),
+            "vpending_n": table._valid_pending_n, "h_invalid": dg._h_invalid.copy(),
+            "stale": table._stale_host.copy(), "stale_count": table._stale_count,
+            "pending": backend._pending.copy()}
+
+
+def _restore_live_state(backend, table, st: dict) -> None:
+    """Put a :func:`_live_state` copy back, into the same tensors (a captured
+    program's addresses stay valid)."""
+    dg = backend.graph
+    dg.device_arrays().invalid.copy_(st["words"])
+    table._values.copy_(st["values"])
+    st["valid_t"].copy_(st["valid"])
+    table._valid_dev, table._valid_dev_dirty = st["valid_t"], st["dirty"]
+    table._valid_pending, table._valid_pending_n = list(st["vpending"]), st["vpending_n"]
+    dg._h_invalid[:] = st["h_invalid"]
+    table._stale_host[:] = st["stale"]
+    table._stale_count = st["stale_count"]
+    backend._pending[:] = st["pending"]
+
+
+def phase_live(device, card: str, level: dict, paths: dict, reset_counts, read_counts) -> dict:
     """The twin of ``perf/live_path.py``'s blocking loop
     (``stl_fusion_tpu_torch/live_path.py``) at 10M rows, on
     ``power_law_10m``'s edge arrays, through the public API: a table-backed
@@ -1081,12 +1183,31 @@ def phase_live(device, card: str, level: dict) -> dict:
     ``read_batch`` of 1M random ids given as a CUDA tensor equals
     ``base[ids]``. One ``live_10m_round`` line a round: refresh ms on the
     host clock, on the device (CUDA events around the call) and the
-    ``block_refresh`` kernel's part of it, and burst ms."""
+    ``block_refresh`` kernel's part of it, and burst ms. The mirror is
+    built (a disk-cache miss) and then loaded from the disk cache, and the
+    loops run on the loaded one.
+
+    Then ``live_sr_10m`` on the same stack: ``perf/live_path.py``'s
+    super-round loop (6 rounds at depth 3 after an untimed warm super-round,
+    each super-round ONE replay of a captured CUDA graph running
+    ``topo_sweep``, ``lane_finish`` and ``block_refresh``), then its chain
+    loop (3 rounds). The first timed super-round is held, outside the
+    timings, against 3 sequential ``cascade_rows_lanes`` +
+    ``refresh_block_on_device`` pairs run from a copy of its inputs: lane
+    counts, per-round masks, invalid words, values and validity identical.
+    No round may take the eager path; every captured graph's launches per
+    replay must be the expected ones (per round ``passes`` x non-empty
+    levels ``topo_sweep``, one ``lane_finish``, one ``block_refresh``).
+    ``paths`` receives the launch counts of the blocking loop (``live``,
+    read just before the super-round loop starts) and of the two
+    nonblocking loops (``live_sr``, counted from 0 at the super-round
+    loop's start and read at the chain loop's end)."""
     import numpy as np
     import torch
 
     from stl_fusion_tpu_torch.live_path import run_live
     from stl_fusion_tpu_torch.ops import block_refresh as brf
+    from stl_fusion_tpu_torch.ops import topo_wave as tpw
     from stl_fusion_tpu_torch.ops.bitops import unpack_words_host
 
     n, src, dst = level["n"], level["src"], level["dst"]
@@ -1105,6 +1226,7 @@ def phase_live(device, card: str, level: dict) -> dict:
             self.base = torch.from_numpy(ctx["svc"].base).to(device)
             if not torch.equal(table.values, self.base) or table.stale_count() != 0:
                 fail("after the warm the values differ from base or rows are stale")
+            self.t_mirror = time.perf_counter()  # the mirror build starts now
 
         def after_seq(self, ctx, batches, counts):
             backend, block = ctx["backend"], ctx["block"]
@@ -1205,17 +1327,169 @@ def phase_live(device, card: str, level: dict) -> dict:
             out["read_batch"] = {"ids": 1_000_000, "first_ms": first_ms, "ms": ms,
                                  "rows_per_s": 1e6 / (ms / 1e3)}
 
+        def after_mirror(self, ctx):
+            g = ctx["backend"].graph
+            cold_s = time.perf_counter() - self.t_mirror
+            out["mirror_cache"] = reload_mirror_from_cache(g, device, cold_s)
+
+        def begin_loop(self, ctx, mode, n_rounds):
+            if mode == "superround":
+                paths["live"] = read_counts()  # the blocking path, read just after it
+                out["max_memory_allocated"] = torch.cuda.max_memory_allocated() if cuda else None
+                reset_counts()
+                if cuda:
+                    torch.cuda.reset_peak_memory_stats()
+                self.first_sr = True
+                self.masks = None
+                ctx["backend"].newly_hooks.append(self.record_mask)
+
+        def record_mask(self, newly):
+            if self.masks is not None:
+                self.masks.append(np.asarray(newly).copy())
+
+        def before_dispatch(self, ctx, mode, k, group_ids):
+            if mode == "superround" and self.first_sr:
+                self.group_ids = group_ids
+                self.s0, self.masks = _live_state(ctx["backend"], ctx["table"]), []
+
+        def after_harvest(self, ctx, mode, per_burst):
+            if mode != "superround" or not self.first_sr:
+                return
+            self.first_sr = False
+            backend, table, block = ctx["backend"], ctx["table"], ctx["block"]
+            got_masks, self.masks = self.masks, []
+            s1 = _live_state(backend, table)
+            saved = (tpw.launches, tpw.lane_finish_launches, brf.launches)
+            journal, backend._journal = backend._journal, []  # the next round's churn waits
+            _restore_live_state(backend, table, self.s0)
+            want = []
+            for _ in range(len(per_burst)):
+                want.append(backend.cascade_rows_lanes(block, self.group_ids))
+                backend.refresh_block_on_device(block)
+            s2 = _live_state(backend, table)
+            tpw.launches, tpw.lane_finish_launches, brf.launches = saved
+            diffs = [name for name, same in (
+                ("lane counts", [c.tolist() for c in per_burst] == [c.tolist() for c in want]),
+                ("masks", len(got_masks) == len(self.masks) and all(
+                    np.array_equal(a, b) for a, b in zip(got_masks, self.masks))),
+                ("invalid words", torch.equal(s1["words"], s2["words"])),
+                ("host invalid", np.array_equal(s1["h_invalid"], s2["h_invalid"])),
+                ("values", torch.equal(s1["values"], s2["values"])),
+                ("validity", torch.equal(s1["valid"], s2["valid"]) and s1["dirty"] == s2["dirty"]
+                 and np.array_equal(s1["stale"], s2["stale"])),
+            ) if not same]
+            _restore_live_state(backend, table, s1)
+            backend._journal = journal + backend._journal
+            self.masks = None
+            if diffs:
+                fail(f"the first super-round differs from 3 sequential burst+refresh pairs in "
+                     f"{diffs}")
+            out["sr_exact"] = {"rounds": len(per_burst), "lanes": int(len(per_burst[0])),
+                               "newly": [int(c.sum()) for c in per_burst],
+                               "masks": len(got_masks)}
+
+        def end_loop(self, ctx, mode, rec):
+            if mode == "superround" and cuda:
+                out["sr_max_memory_allocated"] = torch.cuda.max_memory_allocated()
+            if mode == "chain":
+                paths["live_sr"] = read_counts()
+                self.programs = [p for p in ctx["block"]._dev_refresh.values()]
+                self.mirror = ctx["backend"].graph._topo_mirror
+
     checks = Checks()
-    rec = run_live(n_nodes=n, edges=(src, dst), device=device, observer=checks)
-    for r, extra in zip(rec["rounds"], rounds):
+    rec = run_live(n_nodes=n, edges=(src, dst), device=device, observer=checks,
+                   loops=LIVE_LOOPS)
+    blocking, sr, chain = rec["loops"]
+    for r, extra in zip(blocking["rounds"], rounds):
         r.update(extra)
         emit({"phase": "live_10m_round", **r})
-    out.update({k: v for k, v in rec.items() if k != "rounds"})
-    out["rounds"] = rec["rounds"]
-    if cuda:
-        out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
-    emit({k: v for k, v in out.items() if k != "rounds"})
+    out.update({k: v for k, v in rec.items() if k not in ("rounds", "loops")})
+    out["rounds"] = blocking["rounds"]
+    emit({k: v for k, v in out.items()
+          if k not in ("rounds", "sr_exact", "sr_max_memory_allocated")})
     out["last_union"] = checks.last_union
+    out["live_sr"] = phase_live_sr(card, rec, sr, chain, blocking, checks, out)
+    return out
+
+
+def phase_live_sr(card: str, rec: dict, sr: dict, chain: dict, blocking: dict, checks,
+                  live_out: dict) -> dict:
+    """``live_sr_10m``'s lines, from the loops :func:`phase_live` ran: one
+    ``live_sr_10m_superround`` line per timed super-round (host ms and its
+    split: seed staging, dispatch, the blocking read, the mask unpack, the
+    two-tier apply; device ms between CUDA events around the replay; the
+    program's route), then the summary. Fails if any round was eager, if no
+    super-round replayed a resident graph, if the first super-round was not
+    held exact, or if a captured graph's launches per replay are not the
+    expected ones."""
+
+    def fail(what):
+        raise AssertionError(f"live_sr_10m: {what}")
+
+    history = sr.get("superrounds", [])
+    for i, h in enumerate(history):
+        host_ms = h["stage_ms"] + h["dispatch_ms"] + h["stall_ms"] + h["unpack_ms"] + h["apply_ms"]
+        emit({"phase": "live_sr_10m_superround", "card": card, "index": i, "host_ms": host_ms,
+              **h})
+    if sr["live_superround_eager_rounds"] or sr["live_superround_faults"]:
+        fail(f"{sr['live_superround_eager_rounds']} eager rounds, "
+             f"{sr['live_superround_faults']} faults in the super-round loop")
+    if chain["live_eager_fallback_rounds"]:
+        fail(f"{chain['live_eager_fallback_rounds']} eager rounds in the chain loop")
+    routes = [h["route"] for h in history]
+    if not routes or any(r not in ("capture", "recapture", "replay") for r in routes):
+        fail(f"super-round routes {routes}: each must be one CUDA graph replay")
+    if "replay" not in routes:
+        fail("no super-round replayed a resident graph")
+    if "sr_exact" not in live_out:
+        fail("the first super-round was not held against the sequential pairs")
+    names = ("topo_sweep", "lane_finish", "block_refresh")  # program_cache._launch_counters
+    programs, replay_launches = [], dict.fromkeys(names, 0)
+    for prog in checks.programs:
+        if prog.graph is None:
+            continue
+        _kind, words, passes, update_valid, _n_tot, ls, _base, _rows, shape = prog.key
+        levels = sum(1 for a, b in zip(ls, ls[1:]) if a < b) or 1
+        want = {"topo_sweep": shape[0] * passes * levels, "lane_finish": shape[0],
+                "block_refresh": shape[0]}
+        got = {name: d for name, (_mod, _attr, d) in zip(names, prog.launch_deltas)}
+        if got != want:
+            fail(f"a captured graph launches {got} per replay, expected {want}")
+        for name in names:
+            replay_launches[name] += got[name] * prog.replays
+        programs.append({"depth": shape[0], "lanes": shape[1], "width": shape[2],
+                         "words": words, "passes": passes, "update_valid": update_valid,
+                         "levels": levels, "launches_per_replay": got,
+                         "replays": prog.replays, "captures": prog.captures,
+                         "cold_ms": prog.cold_ms})
+        prog.release()  # the graph's memory pool goes with the live stack
+    out = {
+        "phase": "live_sr_10m", "card": card, "rounds": sr["live_rounds"],
+        "depth": sr["live_superround_depth"], "chain_rounds": chain["live_rounds"],
+        "live_inv_per_s": {"superround": sr["live_inv_per_s"], "chain": chain["live_inv_per_s"],
+                           "blocking": blocking["live_inv_per_s"]},
+        "live_sustained_inv_per_s": {"superround": sr["live_sustained_inv_per_s"],
+                                     "chain": chain["live_sustained_inv_per_s"],
+                                     "blocking": blocking["live_sustained_inv_per_s"]},
+        "live_total_inv": {"superround": sr["live_total_inv"], "chain": chain["live_total_inv"]},
+        "superround_dispatches": sr["live_superround_dispatches"],
+        "chain_dispatches": chain["live_fused_chain_dispatches"],
+        "occupancy": sr["live_superround_occupancy"],
+        "host_stall_ms": sr["live_superround_host_stall_ms"],
+        "eager_rounds": sr["live_superround_eager_rounds"],
+        "chain_eager_rounds": chain["live_eager_fallback_rounds"],
+        "restages": sr["live_superround_restages"],
+        "forced_harvests": sr["live_superround_forced_harvests"],
+        "programs_in_loop": sr.get("superround_programs"), "routes": routes,
+        "captured_graphs": programs, "replay_launches": replay_launches,
+        "exact_first_superround": live_out["sr_exact"],
+        "max_memory_allocated": live_out.get("sr_max_memory_allocated"),
+        "warm_s": {"superround": sr["live_warm_s"], "chain": chain["live_warm_s"]},
+        "cold_start_programs": rec["cold_start"]["programs"],
+        "mirror_cache": live_out.get("mirror_cache"),
+        "loop_phases": {"superround": sr["loop_phases"], "chain": chain["loop_phases"]},
+    }
+    emit(out)
     return out
 
 
@@ -1275,15 +1549,23 @@ def profile_checked(device, fn, want: dict, what: str) -> tuple:
     17 of 20 ``or_popcount`` launches). Returns (wall ms, by_name, device
     calls, {form: (device ms per launch over the launches shown, launches
     shown)})."""
-    wall_ms, by_name, calls = profile_device(device, fn)
-    seen = {}
-    for form, n in want.items():
-        ms, got = kernel_calls(by_name, SYMBOLS[form])
-        if not (got == n == 0 or 0 < got <= n):
-            raise AssertionError(f"{what}: the profile shows {got} launches of {form}, "
-                                 f"the wrappers made {n}")
-        seen[form] = (ms / got if got else 0.0, got)
-    return wall_ms, by_name, calls, seen
+    for attempt in (1, 2):
+        wall_ms, by_name, calls = profile_device(device, fn)
+        seen, bad = {}, []
+        for form, n in want.items():
+            ms, got = kernel_calls(by_name, SYMBOLS[form])
+            if not (got == n == 0 or 0 < got <= n):
+                bad.append(f"{what}: the profile shows {got} launches of {form}, the "
+                           f"wrappers made {n}")
+            seen[form] = (ms / got if got else 0.0, got)
+        if not bad:
+            return wall_ms, by_name, calls, seen
+        if attempt == 1 and all(seen[f][1] == 0 for f in want):
+            # a profile that recorded none of the kernels the wrappers
+            # launched: profiled once more, and said so
+            emit({"phase": "profile_retry", "what": what, "reason": bad})
+            continue
+        raise AssertionError("; ".join(bad))
 
 
 #: each kernel form's symbol in the profiler's kernel names
@@ -1838,6 +2120,17 @@ def main() -> int:
     device = torch.device("cuda")
     dev = phase_device()
     phase_build()
+    # the disk mirror cache in a fresh directory outside the checkout: each
+    # 10M mirror build is a miss and saves, then the phase loads it back
+    cache_dir = tempfile.mkdtemp(prefix="fusion-mirror-cache-")
+    os.environ["FUSION_MIRROR_CACHE"] = cache_dir
+    try:
+        return _main(torch, device, dev, opc_mod, wave_mod, rag_mod, tpw_mod, brf_mod)
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+
+
+def _main(torch, device, dev, opc_mod, wave_mod, rag_mod, tpw_mod, brf_mod) -> int:
 
     def counts():
         return {"or_popcount": opc_mod.launches, "wave_expand.all_forms": wave_mod.launches,
@@ -1848,15 +2141,15 @@ def main() -> int:
                 "topo_sweep": tpw_mod.launches, "lane_finish": tpw_mod.lane_finish_launches,
                 "block_refresh": brf_mod.launches}
 
-    def drive(path, run, kernels, absent=()):
-        """One path of the main path: counts to 0 just before, read just
-        after; each named kernel form must have launched, each ``absent``
-        one must not have, and the ring made one CUDA launch per gather."""
+    def reset():
         opc_mod.launches = wave_mod.launches = rag_mod.launches = rag_mod.cuda_launches = 0
         tpw_mod.launches = tpw_mod.lane_finish_launches = brf_mod.launches = 0
         wave_mod.form_launches.update(dict.fromkeys(wave_mod.form_launches, 0))
-        res = run()
-        got = counts()
+
+    def check(path, got, kernels, absent=()):
+        """Each named kernel form must have launched on the path, each
+        ``absent`` one must not have, and the ring made one CUDA launch per
+        gather."""
         emit({"phase": "main_path_launches", "path": path, **got})
         for name in kernels:
             if got[name] <= 0:
@@ -1867,7 +2160,14 @@ def main() -> int:
         if got["ring_cuda_launches"] != got["ring_all_gather"]:
             raise AssertionError(f"the ring made {got['ring_cuda_launches']} CUDA launches in "
                                  f"{got['ring_all_gather']} gathers on the {path} path")
-        return res, got
+        return got
+
+    def drive(path, run, kernels, absent=()):
+        """One path of the main path: counts to 0 just before, read just
+        after, then checked."""
+        reset()
+        res = run()
+        return res, check(path, counts(), kernels, absent)
 
     pl, dense = drive("dense", lambda: (phase_hellocart(device),
                                         phase_power_law(device, dev["nvidia_smi"]))[1],
@@ -1889,10 +2189,18 @@ def main() -> int:
                   sg.clear_invalid, calls, exchange="ring")
     churn, churned = drive("churn", lambda: phase_churn(device, dev["nvidia_smi"], level),
                            ("topo_sweep", "lane_finish"))
-    live, lived = drive("live", lambda: phase_live(device, dev["nvidia_smi"], level),
-                        ("topo_sweep", "lane_finish", "block_refresh"))
+    # the live paths: the blocking loop (counts from 0 just before it, read
+    # just before the super-round loop starts) and live_sr, the super-round
+    # and chain loops (from 0 at the super-round loop's start, read at the
+    # chain loop's end)
+    paths = {}
+    reset()
+    live = phase_live(device, dev["nvidia_smi"], level, paths, reset, counts)
+    live_kernels = ("topo_sweep", "lane_finish", "block_refresh")
+    lived = check("live", paths["live"], live_kernels)
+    live_srd = check("live_sr", paths["live_sr"], live_kernels)
     main_launches = {name: dense[name] + sharded[name] + mirror[name] + churned[name]
-                     + lived[name] for name in dense}
+                     + lived[name] + live_srd[name] for name in dense}
     kernels = phase_kernels(device, main_launches, level, sg, topo, churn, live,
                             dev["nvidia_smi"])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

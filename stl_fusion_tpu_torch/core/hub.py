@@ -85,18 +85,28 @@ class FusionHub:
     # -- nonblocking wave pipeline ------------------------------------
     @property
     def wave_pipeline(self):
-        """The attached wave pipeline, or None while the hub runs blocking
-        (one wave per dispatch) — always None until the pipeline is ported."""
+        """The attached :class:`~stl_fusion_tpu_torch.graph.WavePipeline`,
+        or None while the hub runs blocking (one wave per dispatch)."""
         backend = self._graph_backend
         return getattr(backend, "pipeline", None) if backend is not None else None
 
     def enable_nonblocking(self, fuse_depth: int = 8, **kwargs):
-        """The nonblocking wave pipeline (``graph/nonblocking.py``) is a
-        later slice of the port."""
-        raise NotImplementedError(
-            "FusionHub.enable_nonblocking: the nonblocking wave pipeline is "
-            "not ported yet: ROADMAP A.5 (resident live loop)"
-        )
+        """Attach a nonblocking wave pipeline to the hub's graph backend:
+        ``Computed.invalidate_eventually`` and the burst paths then
+        accumulate seeds lazily and fuse consecutive waves into chained
+        device dispatches, with fence fan-out overlapped against device
+        execution (``graph/nonblocking.py``). Idempotent — returns the live
+        pipeline when one is already attached. Requires a TpuGraphBackend
+        (raises otherwise: with no device mirror there is nothing to
+        fuse)."""
+        backend = self._graph_backend
+        if backend is None:
+            raise RuntimeError("enable_nonblocking needs a TpuGraphBackend attached to this hub")
+        if backend.pipeline is not None:
+            return backend.pipeline
+        from ..graph.nonblocking import WavePipeline
+
+        return WavePipeline(backend, fuse_depth=fuse_depth, **kwargs)
 
     # -- host→device event feed -------------------------------------------
     def on_invalidated(self, computed) -> None:

@@ -34,9 +34,12 @@ key space registers as ONE contiguous block of graph nodes, its dependency
 edges are declared in bulk numpy, and waves over it apply to the table
 vectorized; ``refresh_block_on_device`` recomputes the block's stale rows
 through the table's device loader and the ``block_refresh`` kernel
-(``ops/block_refresh.py``). The packed and routed mesh mirrors, super-rounds,
-the fused burst→refresh chain and the watchdog are later slices of the port
-and raise ``NotImplementedError``.
+(``ops/block_refresh.py``). ``cascade_rows_lanes_refresh_chain`` runs K
+rounds of (lane burst → block refresh) as one program (a ticket with
+``nonblocking=True``), and ``enable_super_rounds`` installs the resident
+super-round program (``graph/superround.py``); on the card both are captured
+CUDA graphs. The packed and routed mesh mirrors and the watchdog are later
+slices of the port and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -53,9 +56,10 @@ import torch
 from ..diagnostics.flight_recorder import RECORDER
 from ..diagnostics.metrics import WaveProfiler, global_metrics, next_wave_seq
 from ..diagnostics.tracing import CAUSE_PREFIX, current_span, span_cause_id
-from ..ops.block_refresh import block_refresh
+from ..ops.block_refresh import block_refresh, loader_rows
 from ..parallel import ShardedDeviceGraph, graph_mesh
 from .device_graph import DeviceGraph, check_structure_cache
+from .program_cache import ProgramCache
 
 if TYPE_CHECKING:
     from ..core.computed import Computed
@@ -85,7 +89,7 @@ class RowBlock:
     the row's node id on registration, so the scalar and columnar views
     cascade as ONE logical node."""
 
-    __slots__ = ("table", "base", "n_rows", "_decl_src", "_decl_dst", "_csr")
+    __slots__ = ("table", "base", "n_rows", "_decl_src", "_decl_dst", "_csr", "_dev_refresh")
 
     def __init__(self, table, base: int, n_rows: int):
         self.table = table
@@ -97,6 +101,8 @@ class RowBlock:
         self._decl_src: List[np.ndarray] = []
         self._decl_dst: List[np.ndarray] = []
         self._csr: Optional[Tuple[np.ndarray, np.ndarray, int]] = None
+        #: the block's resident burst→refresh programs (chains, super-rounds)
+        self._dev_refresh = ProgramCache()
 
     def end(self) -> int:
         return self.base + self.n_rows
@@ -163,16 +169,88 @@ def _loader_rows(table, n_rows: int) -> torch.Tensor:
     """Every row of a bound table through its DEVICE loader
     (``fn(arange(n_rows), *args)``), as a contiguous tensor with the
     table's shape and dtype on its device."""
-    fn = table.device_compute_fn
     args = tuple(table.device_loader_args()) if table.device_loader_args is not None else ()
-    values = table._values
-    ids = torch.arange(n_rows, dtype=torch.int64, device=values.device)
-    fresh = torch.as_tensor(fn(ids, *args), device=values.device)
-    if fresh.dtype != values.dtype:
-        fresh = fresh.to(values.dtype)
-    if fresh.shape != values.shape:
-        fresh = fresh.expand(values.shape)
-    return fresh.contiguous()
+    return loader_rows(table.device_compute_fn, args, table._values[:n_rows])
+
+
+class _RefreshChainTicket:
+    """An in-flight burst→refresh chain (``cascade_rows_lanes_refresh_chain``
+    with ``nonblocking=True``, and each super-round): the programs are
+    enqueued; :meth:`harvest` blocks on the results and runs the two-tier
+    host apply per logical wave. ``dispatched_at`` lets the caller account
+    the overlap window (host work between dispatch and harvest ran while the
+    chain executed on the device)."""
+
+    __slots__ = (
+        "backend", "block", "n_bursts", "stage_burst", "stages", "refresh",
+        "pending", "cause", "seqs", "pre_block_invalid", "dispatched_at",
+        "update_valid", "done", "cleared_total", "kind",
+    )
+
+    def __init__(self, backend, block, n_bursts, stage_burst, stages, refresh, pending, cause,
+                 seqs, pre_block_invalid, dispatched_at, update_valid,
+                 kind: str = "lanes_refresh_chain"):
+        self.backend = backend
+        self.block = block
+        self.n_bursts = n_bursts
+        self.stage_burst = stage_burst
+        self.stages = stages
+        self.refresh = refresh
+        self.pending = pending
+        self.cause = cause
+        self.seqs = seqs
+        self.pre_block_invalid = pre_block_invalid
+        self.dispatched_at = dispatched_at
+        self.update_valid = update_valid
+        self.kind = kind
+        self.done = False
+        #: filled at harvest: the block rows the chained refreshes recomputed
+        self.cleared_total = 0
+
+    def harvest(self) -> list:
+        """Block on the chain, apply every stage's newly mask under its own
+        wave seq, and finish the refresh bookkeeping ONCE, at the end state
+        (the device refreshed every block row invalid at ANY stage). Returns
+        one int64 newly-count array per burst. A second harvest raises."""
+        if self.done:
+            raise RuntimeError("refresh chain already harvested")
+        self.done = True
+        backend = self.backend
+        block, table = self.block, self.block.table
+        seqs, stages = self.seqs, self.stages
+        dg = backend.graph
+        stage_counts, stage_masks = dg.harvest_waves_lanes_chain(self.pending)
+        t1 = time.perf_counter()
+        # the chained table state: the programs refreshed values (and
+        # validity when update_valid) in place, so these are the same tensors
+        table._values = self.refresh["values"]
+        if self.update_valid:
+            table._valid_dev = self.refresh["valid_dev"]
+        backend.last_cause_id = self.cause
+        per_burst = [np.empty(0, dtype=np.int64) for _ in range(self.n_bursts)]
+        cleared_rows = self.pre_block_invalid.copy()
+        total_newly = 0
+        for i, (cnts, mask) in enumerate(zip(stage_counts, stage_masks)):
+            backend.last_wave_seq = seqs[i]
+            backend._apply_newly(mask)
+            sub = mask[block.base : block.end()]
+            cleared_rows |= sub
+            self.cleared_total += int(sub.sum())
+            bi = self.stage_burst[i]
+            per_burst[bi] = np.concatenate([per_burst[bi], cnts])
+            total_newly += int(mask.sum())
+        backend.last_wave_seq = seqs[0]
+        _finish_block_refresh_bookkeeping(table, cleared_rows)
+        total_counts = sum(int(c.sum()) for c in stage_counts)
+        backend.waves_run += sum(len(st) for st in stages)
+        backend.device_invalidations += total_counts
+        backend._profile_wave(
+            self.kind, sum(len(g) for st in stages for g in st), self.cause, self.dispatched_at,
+            t1, total_newly, seqs[0], groups=sum(len(st) for st in stages),
+            fused_depth=len(stages), seq_span=(seqs[0], seqs[-1]),
+            dispatches=self.pending["dispatches"],
+        )
+        return per_burst
 
 
 class TpuGraphBackend:
@@ -206,9 +284,21 @@ class TpuGraphBackend:
         self._block_bases = np.empty(0, dtype=np.int64)
         self._block_ends = np.empty(0, dtype=np.int64)
         self._block_by_table: Dict[int, RowBlock] = {}
-        #: the nonblocking wave pipeline (a later slice): None while the hub
-        #: runs blocking; ``Computed.invalidate_eventually`` reads it
+        #: the nonblocking wave pipeline (``graph/nonblocking.py``): None
+        #: while the hub runs blocking; ``Computed.invalidate_eventually``
+        #: and ``FusionHub.enable_nonblocking`` route here
         self.pipeline = None
+        #: the resident super-round program (``graph/superround.py``), which
+        #: ``enable_super_rounds`` installs; ``WavePipeline.drain()`` covers
+        #: its in-flight work
+        self.super_rounds = None
+        #: True while a pipeline harvest applies chain N-1's masks with chain
+        #: N in flight (the fan-out's overlap window)
+        self.overlap_active = False
+        #: the wave watchdog (ROADMAP A.8): never attached in the port yet,
+        #: so every path takes JAX's no-watchdog branch
+        self.watchdog = None
+        self._routed_mirror = None  # the routed mesh mirror (ROADMAP A.9)
         self._sharded_mirror: Optional[dict] = None  # see sharded_mirror
         self.waves_run = 0
         self.device_invalidations = 0
@@ -987,11 +1077,91 @@ class TpuGraphBackend:
         )
         return counts + fallback
 
-    def enable_super_rounds(self, *args, **kwargs):
-        _not_ported("enable_super_rounds", "A.5 (resident live loop)")
+    def cascade_rows_lanes_refresh_chain(self, block: RowBlock, bursts, nonblocking: bool = False):
+        """K consecutive rounds of (lane burst → block refresh) as one
+        chain: burst ``i`` cascades, the block's stale rows recompute
+        through the table's DEVICE loader (``block_refresh``), and burst
+        ``i+1`` cascades against a consistent block, with no host round trip
+        between rounds (on the card: ``ceil(stages/8)`` CUDA graph replays).
 
-    def cascade_rows_lanes_refresh_chain(self, *args, **kwargs):
-        _not_ported("cascade_rows_lanes_refresh_chain", "A.5 (the fused burst→refresh chain)")
+        ``bursts`` is a list of row-group lists; each burst's semantics are
+        exactly :meth:`cascade_rows_lanes` followed by
+        :meth:`refresh_block_on_device`, and each stage keeps its own wave
+        seq. Returns one int64 newly-count array per burst, or, with
+        ``nonblocking=True``, a ticket whose ``harvest()`` returns them
+        later. Until harvest, journal appends are safe but ``flush()`` and
+        reads of the host invalid mirror are not. Requires a full-table bind
+        with a device loader and a fusible mirror (RuntimeError or TypeError
+        otherwise: callers fall back to the sequential pair)."""
+        self.flush()
+        stages: List[List[List[int]]] = []
+        stage_burst: List[int] = []
+        for bi, groups in enumerate(bursts):
+            seed_lists = [(block.base + self._check_rows(block, g)).tolist() for g in groups]
+            for c0 in range(0, max(len(seed_lists), 1), self._LANES_CHUNK):
+                stages.append(seed_lists[c0 : c0 + self._LANES_CHUNK])
+                stage_burst.append(bi)
+        refresh = self._block_refresh_state(block)
+        dg = self.graph
+        pre_block_invalid = dg._h_invalid[block.base : block.end()].copy()
+        cause, seqs = self._begin_wave_span(len(stages))
+        t0 = time.perf_counter()
+        pending = dg.dispatch_waves_lanes_chain(stages, refresh=refresh)
+        ticket = _RefreshChainTicket(self, block, len(bursts), stage_burst, stages, refresh,
+                                     pending, cause, seqs, pre_block_invalid, t0,
+                                     refresh["update_valid"])
+        if nonblocking:
+            return ticket
+        return ticket.harvest()
+
+    def _block_refresh_state(self, block: RowBlock) -> dict:
+        """The refresh state the chain and super-round programs run the
+        block's refresh with (memo values, validity, loader and its
+        arguments): ONE construction shared by
+        :meth:`cascade_rows_lanes_refresh_chain` and ``graph/superround.py``.
+        Raises for tables without a device loader or partial binds."""
+        table = block.table
+        self._device_loader_of(table, block, "refresh")
+        update_valid = not table._valid_dev_dirty
+        largs = tuple(table.device_loader_args()) if table.device_loader_args is not None else ()
+        return {
+            "base": block.base,
+            "n_rows": block.n_rows,
+            "fn": table.device_compute_fn,
+            "largs": largs,
+            "values": table._values,
+            # valid_mask (not the raw tensor) applies deferred small updates
+            "valid_dev": table.valid_mask if update_valid else table._valid_dev,
+            "update_valid": update_valid,
+            "cache": block._dev_refresh,
+        }
+
+    def enable_super_rounds(self, block: RowBlock, depth: int = 4, max_words: int = 16):
+        """Install the resident super-round program: K live rounds of (lane
+        burst → block refresh through the memo table's loader → the round's
+        packed newly mask) as ONE program (on the card one CUDA graph
+        replay), with the next super-round's seeds staged and the previous
+        one's masks drained around it. Returns the
+        :class:`~.superround.SuperRoundProgram`; ``backend.super_rounds``
+        holds it and ``WavePipeline.drain()`` covers its in-flight work."""
+        from .superround import SuperRoundProgram
+
+        if self.super_rounds is not None and not self.super_rounds._disposed:
+            raise ValueError("backend already has a SuperRoundProgram attached")
+        self.super_rounds = SuperRoundProgram(self, block, depth=depth, max_words=max_words)
+        return self.super_rounds
+
+    def mesh_routing_active(self) -> bool:
+        """Routed mesh waves are ROADMAP A.9: never active in the port yet."""
+        return False
+
+    def _drain_nonblocking(self) -> None:
+        """Harvest every in-flight nonblocking plane (the pipeline's chains
+        and the super-rounds), so a blocking path acts on a quiesced state."""
+        if self.pipeline is not None:
+            self.pipeline.drain()  # also drains super_rounds
+        elif self.super_rounds is not None and not self.super_rounds._disposed:
+            self.super_rounds.drain()
 
     def attach_watchdog(self, *args, **kwargs):
         _not_ported("attach_watchdog", "A.8 (diagnostics and resilience)")

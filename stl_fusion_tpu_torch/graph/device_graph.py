@@ -26,8 +26,15 @@ next use (:meth:`DeviceGraph._try_patch_mirror`); a level-violating edge
 costs one more sweep pass, past 3 of them a background re-level starts
 (:meth:`DeviceGraph.start_topo_mirror_rebuild`), and an unpatchable delta
 breaks the log, after which bursts take the dense path until the mirror is
-built again. The disk mirror cache and the non-blocking lane chain are
-later slices (ROADMAP A.4/A.5).
+built again. With ``FUSION_MIRROR_CACHE`` set, a built mirror is saved to
+disk keyed by its live-edge fingerprint, and a later build of the same edge
+set loads it (:meth:`DeviceGraph._mirror_cache_path`).
+
+The non-blocking lane chain (:meth:`DeviceGraph.dispatch_waves_lanes_chain`
+and :meth:`DeviceGraph.harvest_waves_lanes_chain`) and the resident
+super-round (:meth:`DeviceGraph.dispatch_waves_superround`) enqueue their
+stages without reading anything back; on the card each batch of stages is
+one replay of a captured CUDA graph (``graph/program_cache.py``).
 """
 from __future__ import annotations
 
@@ -43,8 +50,10 @@ import torch
 
 from ..device import resolve_device
 from ..diagnostics.metrics import global_metrics
+from .program_cache import ChainProgram, ProgramCache
 from ..ops.bitops import ids_to_word_masks, pack_mask_host, unpack_words_host
 from ..ops.ell_wave import (
+    EllGraph,
     build_ell,
     ell_live_epoch_init,
     ell_live_union_chain_step,
@@ -53,10 +62,13 @@ from ..ops.ell_wave import (
 )
 from ..ops.pull_wave import pack_lane_matrix
 from ..ops.topo_wave import (
+    TopoGraph,
     build_topo_graph,
     topo_graph_arrays,
+    topo_mirror_fused_lanes_chain_step,
     topo_mirror_fused_lanes_step,
     topo_mirror_fused_union_step,
+    topo_mirror_superround_step,
 )
 from ..ops.wave import (
     GraphArrays,
@@ -68,7 +80,7 @@ from ..ops.wave import (
     seeds_to_frontier,
 )
 
-__all__ = ["DeviceGraph", "check_structure_cache"]
+__all__ = ["DeviceGraph", "check_structure_cache", "fetch_outputs"]
 
 log = logging.getLogger("stl_fusion_tpu_torch")
 
@@ -80,8 +92,10 @@ def _round_up_pow2(x: int) -> int:
     return n
 
 
-def _not_ported(what: str, slice_: str):
-    raise NotImplementedError(f"DeviceGraph.{what} is not ported yet: ROADMAP {slice_}")
+def fetch_outputs(out):
+    """A dispatched chain batch's (lane counts, newly mask words) as numpy:
+    the harvest's one blocking read of the device (``ChainOutputs.fetch``)."""
+    return out.fetch()
 
 
 def check_structure_cache(entry: dict, struct_version: int, fp_fn) -> bool:
@@ -128,9 +142,12 @@ class DeviceGraph:
     LAT_LCAP = 512
     LAT_CAP = 8192
     # guaranteed-free slots per mirror row (topo in-rows and lat out-rows), as
-    # in the JAX package: the tables keep its shapes, which its patch path (a
-    # later slice) splices new edges into
+    # in the JAX package: the tables keep its shapes, which the patch path
+    # splices new edges into
     PATCH_SLACK = 2
+    #: ≤ this many sweep passes ride the fused chain and super-round; a
+    #: heavier patched mirror falls back (the callers' counted eager path)
+    FUSED_PASS_MAX = 3
 
     def _init_versions(self) -> None:
         # bumped on every structural mutation: a structure cache remembers
@@ -164,6 +181,17 @@ class DeviceGraph:
         # instead of the worst-case 1+n_viol; counted per adaptive burst
         self.adaptive_passes = False
         self.adaptive_stages = 0
+        self.mirror_cache_hits = 0  # disk-cache loads (build_topo_mirror)
+        self.mirror_cache_misses = 0  # full host builds with a cache root set
+        #: the lane chains' resident programs (the refresh chains' live on
+        #: their row block)
+        self._chain_programs = ProgramCache()
+        #: the last harvest's split: seconds blocked on the device read, and
+        #: seconds unpacking the stage masks into the host mirror
+        self.last_harvest_info: Optional[dict] = None
+        self._mirror_cache_writer: Optional[threading.Thread] = None  # the last save
+        #: the last disk-cache load's split: reading the entry, installing it
+        self.last_mirror_load: Optional[dict] = None
 
     @classmethod
     def from_numpy_state(cls, state: dict, device=None) -> "DeviceGraph":
@@ -796,7 +824,22 @@ class DeviceGraph:
             cached["validated_at"] = self._struct_version
             self._mirror_deltas = []
             return cached
-        self._mirror_cache_path(fp, k)
+        cache_path = self._mirror_cache_path(fp, k)
+        if cache_path is not None:
+            t0 = time.perf_counter()
+            loaded = self._load_mirror_cache(cache_path)
+            if loaded is not None:
+                topo_c, lat_c = loaded
+                self.mirror_cache_hits += 1
+                log.info("topo mirror loaded from disk cache (%s)", cache_path)
+                t1 = time.perf_counter()
+                self._install_topo_mirror(topo_c, k, cap, fp, self._struct_version,
+                                          self.n_nodes, lat=lat_c)
+                self._mirror_deltas = []
+                self.last_mirror_load = {"read_s": t1 - t0,
+                                         "install_s": time.perf_counter() - t1}
+                return self._topo_mirror
+            self.mirror_cache_misses += 1
         # the lat mirror is level-independent: a re-level carries a live,
         # patched-current one, unless a delta is pending (it is in the new
         # edge snapshot, not in the lat tables) or nodes were added
@@ -808,16 +851,111 @@ class DeviceGraph:
         lat = carried_lat if carried_lat is not None else widen_ell(
             build_ell(src, dst, self.n_nodes, k=self.LAT_K), self.PATCH_SLACK)
         self._install_topo_mirror(topo, k, cap, fp, self._struct_version, self.n_nodes, lat=lat)
+        if cache_path is not None and not isinstance(lat, dict):
+            # a carried lat is not saved: its host tables hold patched slots
+            self._save_mirror_cache_async(cache_path, topo, lat)
         self._mirror_deltas = []  # a fresh log: the mirror is coherent now
         return self._topo_mirror
 
-    def _mirror_cache_path(self, fp, k: int):
-        """The disk mirror cache (JAX: keyed by the fingerprint under
-        ``FUSION_MIRROR_CACHE``) is not ported: None while that variable is
-        unset, and a build with it set raises rather than ignore it."""
-        if os.environ.get("FUSION_MIRROR_CACHE"):
-            _not_ported("the disk mirror cache (FUSION_MIRROR_CACHE)", "A.4 (disk mirror cache)")
-        return None
+    # ------------------------------------------------------------------ mirror disk cache
+    #: entries kept: the reusable pre-churn entry and a run's rebuild saves
+    #: (loads touch their entry, so pruning by mtime never evicts it first)
+    MIRROR_CACHE_KEEP = 3
+    #: the port's own file suffix: the JAX package's ``.npz`` entries (and
+    #: its pruning, which lists ``.npz``) never meet these
+    MIRROR_CACHE_SUFFIX = ".torchmirror"
+
+    def _mirror_cache_path(self, fp, k: int) -> Optional[str]:
+        """The fingerprint-keyed disk entry of a mirror build under the
+        ``FUSION_MIRROR_CACHE`` root (None while that variable is unset): a
+        restart on the same live edge set loads the built topo and lat
+        tables instead of re-deriving them (JAX keys it the same way)."""
+        root = os.environ.get("FUSION_MIRROR_CACHE")
+        if not root:
+            return None
+        key = f"{fp.hex()}-k{k}s{self.PATCH_SLACK}l{self.LAT_K}-v1"
+        return os.path.join(root, key + self.MIRROR_CACHE_SUFFIX)
+
+    def _load_mirror_cache(self, path: str):
+        """(TopoGraph, EllGraph) from a cache entry, or None. The derivable
+        tables (slot epochs, the lat mirror's is_real) are rebuilt from the
+        id tables; the entry stores only what cannot be derived. A corrupt
+        entry is a miss and is removed."""
+        if not os.path.exists(path):
+            return None
+        try:
+            try:
+                os.utime(path)  # the LRU touch: pruning goes by mtime
+            except OSError:
+                pass
+            with open(path, "rb") as f:
+                z = np.load(f)
+                in_src = z["in_src"]
+                n_tot, n_real = int(z["n_tot"]), int(z["n_real"])
+                if n_real != self.n_nodes:
+                    return None
+                topo = TopoGraph(in_src, np.where(in_src != n_tot, 0, -1).astype(np.int32),
+                                 z["is_real"], tuple(z["level_starts"].tolist()), z["perm"],
+                                 z["inv_perm"], n_real, n_tot, int(z["k"]))
+                lat_dst, lat_n_tot, lat_k = z["lat_dst"], int(z["lat_n_tot"]), int(z["lat_k"])
+            lat_is_real = np.zeros(lat_n_tot + 1, dtype=bool)
+            lat_is_real[:n_real] = True
+            lat = EllGraph(lat_dst, np.where(lat_dst != lat_n_tot, 0, -1).astype(np.int32),
+                           lat_is_real, n_real, lat_n_tot, lat_k)
+            return topo, lat
+        except Exception:  # noqa: BLE001 — a corrupt entry is a cache miss
+            try:
+                os.remove(path)
+            except OSError:
+                pass
+            return None
+
+    def _save_mirror_cache_async(self, path: str, topo, lat) -> None:
+        """Persist a freshly built mirror in a background thread (the write
+        is ~1 GB at 10M rows: never on the serving path), then prune the
+        root to the newest ``MIRROR_CACHE_KEEP`` entries. Returns the
+        thread."""
+        suffix = self.MIRROR_CACHE_SUFFIX
+        keep = self.MIRROR_CACHE_KEEP
+
+        def work():
+            tmp = path + ".tmp"
+            try:
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                with open(tmp, "wb") as f:
+                    np.savez(f, in_src=topo.in_src,
+                             level_starts=np.asarray(topo.level_starts, dtype=np.int64),
+                             perm=topo.perm, inv_perm=topo.inv_perm, is_real=topo.is_real,
+                             n_tot=topo.n_tot, n_real=topo.n_real, k=topo.k,
+                             lat_dst=lat.ell_dst, lat_n_tot=lat.n_tot, lat_k=lat.k)
+                os.replace(tmp, path)
+            except Exception:  # noqa: BLE001 — cache writes are best-effort
+                try:
+                    os.remove(tmp)
+                except OSError:
+                    pass
+                return
+            try:
+                root = os.path.dirname(path)
+                entries = []
+                for name in os.listdir(root):
+                    full = os.path.join(root, name)
+                    if name.endswith(suffix + ".tmp"):
+                        # an orphan of a killed writer: stale after an hour
+                        if time.time() - os.path.getmtime(full) > 3600:
+                            os.remove(full)
+                    elif name.endswith(suffix):
+                        entries.append(full)
+                entries.sort(key=os.path.getmtime)
+                for old in entries[:-keep]:
+                    os.remove(old)
+            except Exception:  # noqa: BLE001 — pruning is best-effort
+                pass
+
+        t = threading.Thread(target=work, name="mirror-cache-save", daemon=True)
+        t.start()
+        self._mirror_cache_writer = t
+        return t
 
     def _install_topo_mirror(self, topo, k: int, cap: int, fp, validated_at: int, n_nodes: int,
                              lat=None) -> dict:
@@ -1062,15 +1200,22 @@ class DeviceGraph:
         the chunk boundary (groups in a chunk are snapshot-independent: two
         may both count a node; chunks apply in order). Returns (per-group
         newly counts int64[B], the union's newly-invalid BOOL MASK over node
-        ids, ``n_cap + 1`` long). JAX fuses chunks past the first into a
-        device-side chain; here they are a loop, with the same results."""
+        ids, ``n_cap + 1`` long). Several chunks on a fusible mirror ride
+        the lane chain (:meth:`run_waves_lanes_chain`, ``ceil(chunks/8)``
+        dispatches), as in JAX; otherwise the chunks are a loop."""
         m = self.build_topo_mirror()
         n_tot = m["n_tot"]
         B = len(seed_id_lists)
         counts = np.zeros(B, dtype=np.int64)
         union_mask = np.zeros(self.n_cap + 1, dtype=bool)
-        any_newly = False
         chunk_size = 32 * max_words
+        if B > chunk_size and self._mirror_valid() and m.get("passes", 1) <= self.FUSED_PASS_MAX:
+            stages = [seed_id_lists[c0 : c0 + chunk_size] for c0 in range(0, B, chunk_size)]
+            stage_counts, stage_masks = self.run_waves_lanes_chain(stages, max_words=max_words)
+            for mask in stage_masks:
+                union_mask |= mask
+            return np.concatenate(stage_counts), union_mask
+        any_newly = False
         for c0 in range(0, B, chunk_size):
             chunk = seed_id_lists[c0 : c0 + chunk_size]
             mat, words = pack_lane_matrix(chunk, pad_id=n_tot, n_valid=m["n_nodes"],
@@ -1094,34 +1239,219 @@ class DeviceGraph:
         self.last_lanes_info = {"depth": n_chunks, "dispatches": n_chunks}
         return counts, union_mask
 
-    def run_waves_lanes_chain(self, stage_groups: Sequence[Sequence[Sequence[int]]],
-                              max_words: int = 16) -> Tuple[list, list]:
-        """``depth`` CONSECUTIVE lane bursts: stage ``i`` cascades against
-        the invalid state stages ``< i`` left. A synchronous walk of
-        :meth:`run_waves_lanes` over the stages, with JAX's results (JAX
-        fuses the stages into ``ceil(depth/8)`` device programs). Returns
-        (per-stage int64 counts, per-stage newly BOOL masks)."""
-        max_groups = max((len(s) for s in stage_groups), default=1)
-        if max_groups > 32 * max_words:
+    # ------------------------------------------------------------------ lane chains
+    #: chain stages per dispatch (``dispatch_waves_lanes_chain``): a deeper
+    #: chain splits into batches of this many stages, one program each
+    FUSE_CHAIN_MAX = 8
+    #: rounds per super-round dispatch: the whole depth is one program (one
+    #: CUDA graph replay on the card); the cap bounds a runaway depth
+    SUPER_DEPTH_MAX = 64
+
+    def _fused_mirror(self, what: str) -> dict:
+        """The mirror a chain or super-round runs on: built, patched or
+        revalidated, valid, and at most ``FUSED_PASS_MAX`` passes; raises
+        RuntimeError otherwise (callers take their counted eager path)."""
+        m = self.build_topo_mirror()
+        if not self._mirror_valid():
+            raise RuntimeError(f"topo mirror unavailable — {what} needs the fused path")
+        passes = m.get("passes", 1)
+        if passes > self.FUSED_PASS_MAX:
+            raise RuntimeError(f"mirror carries {passes} sweep passes > FUSED_PASS_MAX — "
+                               f"{what} serves only the fused regime")
+        self._count_adaptive(passes)
+        return m
+
+    @staticmethod
+    def _mirror_fixed(m: dict) -> tuple:
+        """The mirror tensors a chain body reads (a capture bakes them in)."""
+        return (*m["garrays"], m["node_epoch0"], m["perm_clipped"])
+
+    def _lanes_chain_program(self, m: dict, words: int, passes: int, shape) -> ChainProgram:
+        """The resident program of a lane chain (no refresh) for one
+        geometry: ``topo_mirror_fused_lanes_chain_step``'s stages."""
+        level_starts, n_tot = m["level_starts"], m["n_tot"]
+        key = ("lanes_chain", words, passes, n_tot, level_starts, tuple(shape))
+
+        def make():
+            chain = topo_mirror_fused_lanes_chain_step(level_starts, n_tot, words, passes,
+                                                       shape[0])
+
+            def body(g_invalid, seeds, values, valid, fixed):
+                in_src, edge_epoch, is_real, node_epoch0, perm_clipped = fixed
+                _, counts, masks = chain(type(m["garrays"])(in_src, edge_epoch, is_real),
+                                         node_epoch0, perm_clipped, g_invalid, seeds)
+                return counts, masks
+
+            return ChainProgram(key, body, capture=passes > 0)
+
+        return self._chain_programs.get_or_make(key, make)
+
+    def _refresh_chain_program(self, m: dict, refresh: dict, words: int, passes: int,
+                               shape) -> ChainProgram:
+        """The resident burst→refresh program for one block (JAX
+        ``_refresh_chain_program``; ``topo_mirror_superround_step``'s rounds):
+        the chain path and the super-round share this ONE definition. Kept
+        in the caller-owned ``refresh["cache"]`` keyed on everything that
+        shapes it: JAX's key, plus the seed tensor's shape (depth included),
+        since a CUDA graph is captured for one shape."""
+        key = ("lanes_refresh_chain", words, passes, refresh["update_valid"], m["n_tot"],
+               m["level_starts"], refresh["base"], refresh["n_rows"], tuple(shape))
+
+        def make():
+            step = topo_mirror_superround_step(
+                m["level_starts"], m["n_tot"], words, passes, refresh["base"],
+                refresh["n_rows"], refresh["fn"], refresh["update_valid"])
+            n_mirror = len(self._mirror_fixed(m))
+
+            def body(g_invalid, seeds, values, valid, fixed):
+                in_src, edge_epoch, is_real, node_epoch0, perm_clipped = fixed[:n_mirror]
+                out = step(values, valid, type(m["garrays"])(in_src, edge_epoch, is_real),
+                           node_epoch0, perm_clipped, g_invalid, seeds, *fixed[n_mirror:])
+                return out[3], out[4]
+
+            return ChainProgram(key, body, capture=passes > 0)
+
+        return refresh["cache"].get_or_make(key, make)
+
+    def _run_refresh_program(self, m, refresh, words, passes, g, mats):
+        prog = self._refresh_chain_program(m, refresh, words, passes, mats.shape)
+        return prog.dispatch(
+            g.invalid, mats, refresh["values"],
+            refresh["valid_dev"] if refresh["update_valid"] else None,
+            fixed=(*self._mirror_fixed(m), *refresh["largs"]))
+
+    def dispatch_waves_lanes_chain(self, stage_groups: Sequence[Sequence[Sequence[int]]],
+                                   max_words: int = 16, refresh: Optional[dict] = None) -> dict:
+        """ENQUEUE ``depth`` consecutive lane bursts as
+        ``ceil(depth/FUSE_CHAIN_MAX)`` programs WITHOUT reading anything
+        back (stage ``i`` cascades against the words stages ``< i`` leave);
+        :meth:`harvest_waves_lanes_chain` blocks on the results. On the card
+        each batch is one CUDA graph replay.
+
+        ``refresh`` folds the block's device refresh into EVERY stage (the
+        burst→refresh chain of the live loop): keys ``{"base", "n_rows",
+        "fn", "largs", "values", "valid_dev", "update_valid", "cache"}``
+        (``cache`` holds the block's programs, ``RowBlock._dev_refresh``).
+        The words, values and validity update IN PLACE as the stages run.
+
+        Requires a fusible mirror (valid, ``passes <= FUSED_PASS_MAX``);
+        raises RuntimeError otherwise. Returns the pending dict for harvest."""
+        m = self._fused_mirror("chain")
+        passes = m.get("passes", 1)
+        n_tot = m["n_tot"]
+        # one lane geometry for the whole chain: words covers the widest
+        # stage, width the widest group
+        words = 1
+        max_groups = max((len(st) for st in stage_groups), default=1)
+        while 32 * words < max_groups:
+            words <<= 1
+        if words > max_words:
             raise ValueError(f"a stage carries {max_groups} groups > 32*max_words="
                              f"{32 * max_words}; chunk stages before chaining")
+        width = 1
+        max_seeds = max((len(gr) for st in stage_groups for gr in st), default=1)
+        while width < max_seeds:
+            width <<= 1
+        L = 32 * words
+
+        def pack_stage(stage, base_index):
+            mat, _w = pack_lane_matrix(stage, pad_id=n_tot, n_valid=m["n_nodes"],
+                                       id_map=m["inv_perm"], base_index=base_index)
+            out = np.full((L, width), n_tot, dtype=np.int32)
+            out[: mat.shape[0], : mat.shape[1]] = mat
+            return out
+
+        batches: list = []
+        group_base = 0
+        for b0 in range(0, len(stage_groups), self.FUSE_CHAIN_MAX):
+            batch = stage_groups[b0 : b0 + self.FUSE_CHAIN_MAX]
+            parts = []
+            for st in batch:
+                parts.append(pack_stage(st, group_base))
+                group_base += len(st)
+            mats = np.stack(parts)
+            g = self.device_arrays()
+            if refresh is None:
+                out = self._lanes_chain_program(m, words, passes, mats.shape).dispatch(
+                    g.invalid, mats, fixed=self._mirror_fixed(m))
+            else:
+                out = self._run_refresh_program(m, refresh, words, passes, g, mats)
+            self.mirror_bursts += len(batch)
+            batches.append((out, [len(st) for st in batch]))
+        self.last_lanes_info = {"depth": len(stage_groups), "dispatches": len(batches)}
+        return {"batches": batches, "refresh": refresh, "depth": len(stage_groups),
+                "dispatches": len(batches)}
+
+    def dispatch_waves_superround(self, mats, sizes: Sequence[int], refresh: dict,
+                                  words: int) -> dict:
+        """ONE dispatch for a whole super-round: ``mats`` is the pre-packed
+        int32[K, 32*words, S] NEW-id seed tensor (numpy, or the pinned
+        buffer ``graph/superround.py`` staged while the previous super-round
+        ran), so dispatch packs nothing. No batching: the whole depth is one
+        program, on the card one CUDA graph replay, and the same geometry
+        replays the same graph every super-round. Requires a fusible mirror;
+        raises RuntimeError otherwise. Returns a pending dict for
+        :meth:`harvest_waves_lanes_chain`."""
+        m = self._fused_mirror("super-round")
+        passes = m.get("passes", 1)
+        K = int(mats.shape[0])
+        if K > self.SUPER_DEPTH_MAX:
+            raise ValueError(f"super-round depth {K} > SUPER_DEPTH_MAX={self.SUPER_DEPTH_MAX}")
+        g = self.device_arrays()
+        out = self._run_refresh_program(m, refresh, words, passes, g, mats)
+        self.mirror_bursts += K
+        self.last_lanes_info = {"depth": K, "dispatches": 1}
+        return {"batches": [(out, list(sizes))], "refresh": refresh, "depth": K,
+                "dispatches": 1}
+
+    def harvest_waves_lanes_chain(self, pending: dict) -> Tuple[list, list]:
+        """Block on a dispatched chain or super-round and fold it into the
+        host mirror. Returns ``(stage_counts, stage_masks)``: per-stage
+        int64 newly counts and per-stage newly BOOL masks over node ids. For
+        a refresh chain the block's rows read consistent afterwards: the
+        device cleared them at every stage, and the host mirror catches up
+        once, at the end state. ``last_harvest_info`` keeps the split: the
+        blocking read, the mask unpack, and the device time of the batches
+        (CUDA events around each replay; None on the CPU)."""
+        t0 = time.perf_counter()
+        fetched = [(fetch_outputs(out), sizes, out) for out, sizes in pending["batches"]]
+        t1 = time.perf_counter()
         stage_counts, stage_masks = [], []
-        for stage in stage_groups:
-            c, mask = self.run_waves_lanes(stage, max_words=max_words)
-            stage_counts.append(c)
-            stage_masks.append(mask)
-        self.last_lanes_info = {"depth": len(stage_groups), "dispatches": len(stage_groups)}
+        any_newly = False
+        for (lane_counts, packed), sizes, _out in fetched:
+            for d, size in enumerate(sizes):
+                stage_counts.append(lane_counts[d, :size].astype(np.int64))
+                mask = unpack_words_host(packed[d], len(self._h_invalid))
+                stage_masks.append(mask)
+                if mask.any():
+                    any_newly = True
+                    self._h_invalid |= mask
+        refresh = pending["refresh"]
+        if refresh is not None:
+            base, n_rows = refresh["base"], refresh["n_rows"]
+            self._h_invalid[base : base + n_rows] = False
+            any_newly = True
+        if any_newly:
+            self.invalid_version += 1
+        dev = [out.device_ms for _, _, out in fetched]
+        self.last_harvest_info = {
+            "fetch_s": t1 - t0, "unpack_s": time.perf_counter() - t1,
+            "device_ms": None if any(d is None for d in dev) else sum(dev),
+            "routes": [out.route for _, _, out in fetched],
+        }
         return stage_counts, stage_masks
 
-    # ------------------------------------------------------------------ later slices
-    def dispatch_waves_lanes_chain(self, *args, **kwargs):
-        _not_ported("dispatch_waves_lanes_chain", "A.5 (the non-blocking lane chain)")
-
-    def harvest_waves_lanes_chain(self, *args, **kwargs):
-        _not_ported("harvest_waves_lanes_chain", "A.5 (the non-blocking lane chain)")
-
-    def dispatch_waves_superround(self, *args, **kwargs):
-        _not_ported("dispatch_waves_superround", "A.5 (super-rounds of the resident live loop)")
+    def run_waves_lanes_chain(self, stage_groups: Sequence[Sequence[Sequence[int]]],
+                              max_words: int = 16) -> Tuple[list, list]:
+        """``depth`` CONSECUTIVE lane bursts — stage ``i`` cascades against
+        the invalid state stages ``< i`` left — as ``ceil(depth/8)``
+        programs (:meth:`dispatch_waves_lanes_chain` then
+        :meth:`harvest_waves_lanes_chain`). Equal to one
+        :meth:`run_waves_lanes` per stage; the dispatch count is the only
+        difference. Returns (per-stage int64 counts, per-stage newly BOOL
+        masks)."""
+        return self.harvest_waves_lanes_chain(
+            self.dispatch_waves_lanes_chain(stage_groups, max_words=max_words))
 
     # ------------------------------------------------------------------ readback
     def invalid_mask(self) -> np.ndarray:

@@ -19,13 +19,26 @@ import torch
 
 from . import _build
 
-__all__ = ["block_refresh", "block_refresh_plain", "launches"]
+__all__ = ["block_refresh", "block_refresh_plain", "launches", "loader_rows"]
 
 #: block_refresh kernel launches since the last reset (one per refresh)
 launches = 0
 #: timing hook, off when None: set to a list, each launch appends the pair
 #: of CUDA events recorded on the stream just before and just after it
 timing = None
+
+
+def loader_rows(fn, largs, values: torch.Tensor) -> torch.Tensor:
+    """Every row of a table through its device loader, ``fn(arange(n_rows),
+    *largs)``, as a contiguous tensor with ``values``' shape, dtype and
+    device (the ``fresh`` argument of :func:`block_refresh`)."""
+    ids = torch.arange(values.shape[0], dtype=torch.int64, device=values.device)
+    fresh = torch.as_tensor(fn(ids, *largs), device=values.device)
+    if fresh.dtype != values.dtype:
+        fresh = fresh.to(values.dtype)
+    if fresh.shape != values.shape:
+        fresh = fresh.expand(values.shape)
+    return fresh.contiguous()
 
 
 def _range_bits(words: torch.Tensor, base: int, n_rows: int) -> torch.Tensor:

@@ -29,7 +29,11 @@ burst's epilogue is the hand-written kernel :func:`lane_finish`
 and its commit into the packed words, in one pass; its plain version is
 :func:`lane_finish_plain`. The fused union, lanes and chain steps keep their
 JAX names and are plain compositions of gate, sweep and finish: JAX fuses
-them to save relay round trips, which the port does not have.
+them to save relay round trips, which the port does not have. The chain and
+the super-round (:func:`topo_mirror_superround_step`: each round a lane
+burst, then the block refresh through the memo table's loader and the
+``block_refresh`` kernel) share one per-stage body, :func:`_chain_stages`;
+the card runs each as one captured CUDA graph (``graph/program_cache.py``).
 """
 from __future__ import annotations
 
@@ -42,6 +46,7 @@ import torch
 
 from ..device import resolve_device
 from . import _build
+from .block_refresh import block_refresh, loader_rows
 from .ell_wave import EllGraph, build_ell
 from .pull_wave import pack_seed_words
 from .wave import _bit_at
@@ -65,6 +70,7 @@ __all__ = [
     "topo_mirror_fused_union_step",
     "topo_mirror_gate_lanes_step",
     "topo_mirror_gate_step",
+    "topo_mirror_superround_step",
     "topo_seeds_to_bits",
     "topo_sweep",
     "topo_sweep_plain",
@@ -440,11 +446,11 @@ def topo_mirror_gate_step(n_tot: int):
 
     def gate(is_real, node_epoch0, perm_clipped, g_invalid, seed_new_ids):
         blocked = is_real & _bit_at(g_invalid, perm_clipped)
-        blocked[n_tot] = False
+        blocked[n_tot].fill_(False)  # fill_: no host scalar copy (graph capture)
         node_epoch = torch.where(blocked, -3, node_epoch0).to(torch.int32)
         seed_bits = torch.zeros(n_tot + 1, dtype=torch.int32, device=g_invalid.device)
         seed_bits[seed_new_ids.long()] = 1
-        seed_bits[n_tot] = 0
+        seed_bits[n_tot].fill_(0)
         return node_epoch, seed_bits
 
     return gate
@@ -508,7 +514,7 @@ def topo_mirror_gate_lanes_step(n_tot: int, words: int):
     def gate(is_real, node_epoch0, perm_clipped, g_invalid, seed_new_ids):
         device = g_invalid.device
         blocked = is_real & _bit_at(g_invalid, perm_clipped)
-        blocked[n_tot] = False
+        blocked[n_tot].fill_(False)  # fill_: no host scalar copy (graph capture)
         node_epoch = torch.where(blocked, -3, node_epoch0).to(torch.int32)
         if seed_new_ids.shape[0] != L:
             raise ValueError(f"lane gate: {seed_new_ids.shape[0]} seed rows for {L} lanes")
@@ -519,7 +525,7 @@ def topo_mirror_gate_lanes_step(n_tot: int, words: int):
         seed_bits = torch.zeros((n_tot + 1) * W, dtype=torch.int32, device=device)
         seed_bits.index_add_(0, flat.reshape(-1), vals.reshape(-1))
         seed_bits = seed_bits.view(n_tot + 1, W)
-        seed_bits[n_tot] = 0
+        seed_bits[n_tot].fill_(0)
         return node_epoch, seed_bits
 
     return gate
@@ -623,6 +629,34 @@ def _lanes_stage_body(level_starts, n_tot: int, W: int, passes: int,
         garrays.is_real, perm_clipped, g_invalid, state.invalid_bits)
 
 
+def _chain_stages(level_starts, n_tot: int, W: int, passes: int, garrays: TopoGraphArrays,
+                  node_epoch0, perm_clipped, g_invalid, seed_mats, refresh=None):
+    """The per-stage body the chain and the super-round share (JAX's
+    ``_refresh_chain_program`` is one definition for both): each stage is
+    one lane burst against the words the stages before it left, then, when
+    ``refresh`` is given, the block refresh — the block's rows whose bits
+    are set take the loader's fresh rows, turn valid when ``refresh
+    ["valid"]`` is a tensor, and their bits clear (``block_refresh``), so
+    the next stage cascades against a consistent block. ``refresh`` holds
+    ``base``, ``fn``, ``largs``, ``values`` and ``valid`` (None leaves
+    validity alone). ``g_invalid``, ``values`` and ``valid`` update IN
+    PLACE. Returns (lane_counts int32[K, 32W], newly mask words [K, nw]):
+    stage ``i``'s newly mask is the words ``lane_finish`` committed, JAX's
+    ``pack_bool_bits(newly_dense)``."""
+    counts, masks = [], []
+    for mat in seed_mats:
+        _, lane_counts, _, newly = _lanes_stage_body(
+            level_starts, n_tot, W, passes, garrays, node_epoch0, perm_clipped, g_invalid, mat)
+        counts.append(lane_counts)
+        masks.append(newly)
+        if refresh is not None:
+            values = refresh["values"]
+            fresh = loader_rows(refresh["fn"], refresh["largs"], values)
+            block_refresh(g_invalid, values, fresh, refresh["valid"], refresh["base"])
+            del fresh
+    return torch.stack(counts), torch.stack(masks)
+
+
 def topo_mirror_fused_lanes_step(level_starts: Tuple[int, ...], n_tot: int, words: int,
                                  passes: int = 1):
     """The lane burst: gate → sweep × ``passes`` → finish, the plain
@@ -642,8 +676,9 @@ def topo_mirror_fused_lanes_step(level_starts: Tuple[int, ...], n_tot: int, word
 def topo_mirror_fused_lanes_chain_step(level_starts: Tuple[int, ...], n_tot: int, words: int,
                                        passes: int, depth: int):
     """``depth`` consecutive lane bursts, stage ``i`` against the state
-    stages ``< i`` left: a loop over :func:`_lanes_stage_body` where JAX
-    runs a ``lax.scan`` in one program (same results). Takes ``seed_mats``
+    stages ``< i`` left: :func:`_chain_stages` where JAX runs a ``lax.scan``
+    in one program (same results; on the card the caller captures it as one
+    CUDA graph, ``graph/program_cache.py``). Takes ``seed_mats``
     int32[depth, 32*words, S]. Returns ``chain(garrays, node_epoch0,
     perm_clipped, g_invalid_words, seed_mats) -> (g_invalid_words,
     lane_counts int32[depth, 32*words], newly mask words [depth, nw])``."""
@@ -652,13 +687,39 @@ def topo_mirror_fused_lanes_chain_step(level_starts: Tuple[int, ...], n_tot: int
     def chain(garrays: TopoGraphArrays, node_epoch0, perm_clipped, g_invalid, seed_mats):
         if seed_mats.shape[0] != depth:
             raise ValueError(f"lanes chain: {seed_mats.shape[0]} stages, built for {depth}")
-        counts, masks = [], []
-        for mat in seed_mats:
-            _, lane_counts, _, newly = _lanes_stage_body(
-                level_starts, n_tot, words, passes, garrays, node_epoch0, perm_clipped,
-                g_invalid, mat)
-            counts.append(lane_counts)
-            masks.append(newly)
-        return g_invalid, torch.stack(counts), torch.stack(masks)
+        counts, masks = _chain_stages(level_starts, n_tot, words, passes, garrays, node_epoch0,
+                                      perm_clipped, g_invalid, seed_mats)
+        return g_invalid, counts, masks
 
     return chain
+
+
+def topo_mirror_superround_step(level_starts, n_tot: int, words: int, passes: int, base: int,
+                                n_rows: int, fn, update_valid: bool):
+    """K live rounds of (lane burst → block refresh through the memo
+    table's device loader → the round's packed newly mask), round ``i+1``
+    cascading against the state round ``i`` left: JAX's resident
+    super-round (``lax.scan`` over rounds, the dense invalid state and the
+    memo columns in the carry). Here the carry is the tensors themselves,
+    updated IN PLACE, and the rounds are :func:`_chain_stages` with the
+    refresh; on the card the caller captures the whole super-round as ONE
+    CUDA graph (``graph/program_cache.py``). A super-round of K rounds
+    equals K sequential (``cascade_rows_lanes`` → ``refresh_block_on_device``)
+    pairs. Returns ``superround(values, valid_dev, garrays, node_epoch0,
+    perm_clipped, g_invalid_words, seed_mats, *largs) -> (g_invalid_words,
+    values, valid_dev, lane_counts int32[K, 32*words], newly mask words
+    [K, nw])``; ``valid_dev`` is updated only when ``update_valid``. ``fn``
+    is the loader ``(ids, *largs) -> rows``."""
+    level_starts = tuple(level_starts)
+
+    def superround(values, valid_dev, garrays, node_epoch0, perm_clipped, g_invalid, seed_mats,
+                   *largs):
+        if values.shape[0] != n_rows:
+            raise ValueError(f"super-round: {values.shape[0]} value rows, built for {n_rows}")
+        refresh = {"base": base, "fn": fn, "largs": largs, "values": values,
+                   "valid": valid_dev if update_valid else None}
+        counts, masks = _chain_stages(level_starts, n_tot, words, passes, garrays, node_epoch0,
+                                      perm_clipped, g_invalid, seed_mats, refresh)
+        return g_invalid, values, valid_dev, counts, masks
+
+    return superround

@@ -137,14 +137,15 @@ async def test_two_tier_application(world):
 def test_backend_later_slices_raise():
     hub = pcore.FusionHub()
     backend = pgraph.TpuGraphBackend(hub, device="cpu")
-    # row blocks (A.3) are ported; the fused burst→refresh chain over them
-    # is the resident live loop's (A.5)
-    with pytest.raises(NotImplementedError, match="A.5"):
-        backend.cascade_rows_lanes_refresh_chain(None, [])
+    # the resident live loop (A.5) is ported: the pipeline attaches, and the
+    # chain and the super-rounds check their table contract
+    pipe = hub.enable_nonblocking()
+    assert backend.pipeline is pipe and hub.wave_pipeline is pipe
+    assert backend.super_rounds is None and not backend.mesh_routing_active()
     with pytest.raises(NotImplementedError, match="A.8"):
         backend.attach_watchdog(None)
-    with pytest.raises(NotImplementedError, match="A.5"):
-        backend.enable_super_rounds()
-    with pytest.raises(NotImplementedError, match="A.5"):
-        hub.enable_nonblocking()
+    with pytest.raises(NotImplementedError, match="A.9"):
+        backend.packed_mirror()
+    with pytest.raises(NotImplementedError, match="A.9"):
+        backend.enable_mesh_routing()
     assert pgraph.GraphBackend is pgraph.TpuGraphBackend

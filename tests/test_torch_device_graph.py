@@ -116,18 +116,23 @@ def test_from_numpy_state_round_trip():
     _same(jg, pg)
 
 
-def test_mirror_methods_name_their_slice(monkeypatch):
+def test_mirror_methods_name_their_slice(monkeypatch, tmp_path):
+    """The lane chain, the super-round and the disk mirror cache (A.4/A.5)
+    are ported: a chain dispatches and harvests, a super-round deeper than
+    ``SUPER_DEPTH_MAX`` is refused, and a mirror build with
+    ``FUSION_MIRROR_CACHE`` set saves instead of raising."""
     pg = DeviceGraph(device="cpu")
-    for name, args in (("dispatch_waves_lanes_chain", ([[[0]]],)),
-                       ("harvest_waves_lanes_chain", ({},)),
-                       ("dispatch_waves_superround", (None, [], {}, 1))):
-        with pytest.raises(NotImplementedError, match="A.5"):
-            getattr(pg, name)(*args)
     pg.add_nodes(2)
     pg.add_edges([0], [1])
-    monkeypatch.setenv("FUSION_MIRROR_CACHE", "unused")
-    with pytest.raises(NotImplementedError, match="A.4"):
-        pg.build_topo_mirror()
+    monkeypatch.setenv("FUSION_MIRROR_CACHE", str(tmp_path))
+    pg.build_topo_mirror()
+    assert pg.mirror_cache_misses == 1
+    pending = pg.dispatch_waves_lanes_chain([[[0]]])
+    counts, masks = pg.harvest_waves_lanes_chain(pending)
+    assert [c.tolist() for c in counts] == [[2]] and masks[0][:2].tolist() == [True, True]
+    with pytest.raises(ValueError, match="SUPER_DEPTH_MAX"):
+        pg.dispatch_waves_superround(np.zeros((65, 32, 1), np.int32), [1] * 65, {}, 1)
+    pg._mirror_cache_writer.join(20)
 
 
 def test_add_edges_rejects_ids_the_kernels_cannot_index():

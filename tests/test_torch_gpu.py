@@ -511,3 +511,183 @@ def test_topo_sweep_changed_flag_sees_virtual_rows(card):
         assert torch.equal(states[1].invalid_bits, states[0].invalid_bits)
         want = int(bool((states[1].invalid_bits != pre).any()))
         assert int(flags[1]) == int(flags[0]) == want == 1
+
+
+# ------------------------------------------------------------------ resident programs
+SR_N = 800
+
+
+def _sr_stack(card):
+    """A table-backed 800-row DAG (``tests/test_superround.py``'s) bound as
+    one row block on the card, warmed, its topo mirror built."""
+    from stl_fusion_tpu_torch import core
+    from stl_fusion_tpu_torch.graph import TpuGraphBackend
+
+    src, dst = power_law_dag(SR_N, avg_degree=3, seed=7)
+    base = torch.arange(SR_N, dtype=torch.float32, device=card)
+
+    class Dag(core.ComputeService):
+        def load(self, ids):
+            return np.asarray(ids, dtype=np.float32)
+
+        def load_dev(self, ids, base_dev):
+            return base_dev[ids]
+
+        def load_dev_args(self):
+            return (base,)
+
+        @core.compute_method(table=core.TableBacking(
+            rows=SR_N, batch="load", device_batch="load_dev", device_args="load_dev_args"))
+        async def node(self, i: int) -> float:
+            return float(i)
+
+    hub = core.FusionHub()
+    backend = TpuGraphBackend(hub, node_capacity=SR_N + 8, edge_capacity=len(src) + 512,
+                              device=card)
+    svc = Dag(hub)
+    hub.add_service(svc, "dag")
+    table = core.memo_table_of(svc.node)
+    block = backend.bind_table_rows(table)
+    backend.declare_row_edges(block, src, block, dst)
+    backend.warm_block_on_device(block)
+    backend.flush()
+    backend.graph.build_topo_mirror()
+    masks = []
+    backend.newly_hooks.append(lambda newly: masks.append(np.asarray(newly).copy()))
+    return backend, table, block, masks
+
+
+def _sr_bursts(seed, k):
+    rng = np.random.default_rng(seed)
+    return [[rng.choice(SR_N, size=3, replace=False).tolist() for _ in range(40)]
+            for _ in range(k)]
+
+
+def _sr_state(backend, table):
+    return (backend.graph.device_arrays().invalid.cpu(), table._values.cpu(),
+            table.valid_mask.cpu(), table._stale_host.copy())
+
+
+def _sequential(card, rounds):
+    """The twin: one ``cascade_rows_lanes`` + ``refresh_block_on_device``
+    pair per round, stream-ordered."""
+    backend, table, block, masks = _sr_stack(card)
+    counts = []
+    for groups in rounds:
+        counts.append(backend.cascade_rows_lanes(block, groups))
+        backend.refresh_block_on_device(block)
+    return counts, masks, _sr_state(backend, table)
+
+
+def _same(got, want):
+    (gc, gm, gs), (wc, wm, ws) = got, want
+    assert [c.tolist() for c in gc] == [c.tolist() for c in wc]
+    assert len(gm) == len(wm) and all(np.array_equal(a, b) for a, b in zip(gm, wm))
+    for a, b in zip(gs, ws):
+        assert (torch.equal(a, b) if isinstance(a, torch.Tensor) else np.array_equal(a, b))
+
+
+def _routes(prog):
+    return [h["route"] for h in prog.history]
+
+
+def test_captured_superround_equals_stream_ordered_rounds(card):
+    """Three super-rounds of depth 3. The first captures its graph with the
+    validity update (the warm left the table's device validity current); its
+    harvest marks rows stale, so the next ones leave validity to the host and
+    capture that program once, then replay it. Counts, per-round masks, the
+    invalid words, values, validity and staleness equal the sequential pairs
+    bit for bit, and no round was eager. The burst→refresh chain goes the
+    same way."""
+    rounds = [r for s in range(3) for r in _sr_bursts(s, 3)]
+    backend, table, block, masks = _sr_stack(card)
+    prog = backend.enable_super_rounds(block, depth=3)
+    counts = []
+    for s in range(3):
+        counts += prog.dispatch(prog.stage(rounds[3 * s: 3 * s + 3])).harvest()
+    st = prog.stats()
+    assert st["eager_rounds"] == 0 and st["faults"] == 0, st
+    assert _routes(prog) == ["capture", "capture", "replay"], _routes(prog)
+    assert (st["captures"], st["replays"], st["recaptures"]) == (2, 3, 0), st
+    _same((counts, masks, _sr_state(backend, table)), _sequential(card, rounds))
+    backend2, table2, block2, masks2 = _sr_stack(card)
+    got, routes = [], []
+    for s in range(3):
+        got += backend2.cascade_rows_lanes_refresh_chain(block2, rounds[3 * s: 3 * s + 3])
+        routes += backend2.graph.last_harvest_info["routes"]
+    assert routes == ["capture", "capture", "replay"], routes
+    _same((got, masks2, _sr_state(backend2, table2)), _sequential(card, rounds))
+
+
+def test_superround_recaptures_when_a_captured_tensor_moves(card):
+    """A dirty graph re-uploads its invalid words as a new tensor, and a
+    forced re-level installs new mirror tables with the same levels (the
+    same key): the next dispatch must re-capture (counted), never replay
+    against the old addresses; the results stay equal to the sequential
+    pairs."""
+    rounds = [r for s in range(5) for r in _sr_bursts(10 + s, 2)]
+    backend, table, block, masks = _sr_stack(card)
+    prog = backend.enable_super_rounds(block, depth=2)
+    counts = []
+    for s in range(5):
+        if s == 3:
+            old_words = backend.graph.device_arrays().invalid
+            backend.graph._dirty = True  # the next device_arrays() re-uploads
+        if s == 4:
+            assert backend.graph.device_arrays().invalid.data_ptr() != old_words.data_ptr()
+            levels = backend.graph._topo_mirror["level_starts"]
+            backend.graph.build_topo_mirror(force=True)  # new garrays
+            assert backend.graph._topo_mirror["level_starts"] == levels
+        counts += prog.dispatch(prog.stage(rounds[2 * s: 2 * s + 2])).harvest()
+    assert _routes(prog) == ["capture", "capture", "replay", "recapture", "recapture"]
+    st = prog.stats()
+    assert st["recaptures"] == 2 and st["eager_rounds"] == 0, st
+    _same((counts, masks, _sr_state(backend, table)), _sequential(card, rounds))
+
+
+def test_replay_advances_the_launch_counters(card):
+    """Capture launches nothing, so the counters roll back after it; each
+    replay adds what the graph holds: per round, one ``topo_sweep`` launch
+    per non-empty level and pass, one ``lane_finish``, one ``block_refresh``.
+    A dispatch that captures also warms on clones first (real launches)."""
+    from stl_fusion_tpu_torch.ops import block_refresh as brf
+    from stl_fusion_tpu_torch.ops import topo_wave as tpw
+
+    backend, table, block, _ = _sr_stack(card)
+    prog = backend.enable_super_rounds(block, depth=3)
+    m = backend.graph._topo_mirror
+    ls = m["level_starts"]
+    levels = sum(1 for a, b in zip(ls, ls[1:]) if a < b) or 1
+    want = (3 * levels * m["passes"], 3, 3)
+    for s in range(4):
+        staged = prog.stage(_sr_bursts(20 + s, 3))
+        before = (tpw.launches, tpw.lane_finish_launches, brf.launches)
+        prog.dispatch(staged).harvest()
+        torch.cuda.synchronize()
+        after = (tpw.launches, tpw.lane_finish_launches, brf.launches)
+        got = tuple(a - b for a, b in zip(after, before))
+        times = 1 if prog.history[-1]["route"] == "replay" else 2
+        assert got == tuple(times * w for w in want), (s, got, want)
+    assert _routes(prog) == ["capture", "capture", "replay", "replay"]
+
+
+def test_superround_clean_path_has_no_eager_rounds(card):
+    """A stream of super-rounds with churn between them (edges declared,
+    flushed and patched into the mirror in place): every one replays or
+    captures, none falls back."""
+    rng = np.random.default_rng(5)
+    backend, table, block, _ = _sr_stack(card)
+    prog = backend.enable_super_rounds(block, depth=3)
+    for s in range(4):
+        m = backend.graph._topo_mirror
+        a, b = rng.integers(0, SR_N, size=(2, 6))
+        la, lb = (np.searchsorted(m["level_starts_arr"], m["inv_perm"][x], side="right")
+                  for x in (a, b))
+        keep = la < lb  # level-ordered: each patches in without another pass
+        backend.declare_row_edges(block, a[keep], block, b[keep])
+        backend.flush()
+        backend.refresh_block_on_device(block)
+        prog.dispatch(prog.stage(_sr_bursts(30 + s, 3))).harvest()
+    st = prog.stats()
+    assert st["eager_rounds"] == 0 and st["faults"] == 0 and st["uncaptured"] == 0, st
+    assert st["replays"] == 4

@@ -100,3 +100,15 @@ def test_scan_covers_the_row_block_slice():
             "ops/block_refresh.py", "live_path.py"} <= scanned
     src = _build.CSRC / _build.KERNELS["block_refresh"][0]
     assert src.is_file() and src.resolve().parent == (PKG / "csrc").resolve()
+
+
+def test_scan_covers_the_resident_live_loop_slice():
+    """The import scan reaches the resident live loop: the pipeline, the
+    super-rounds and the resident programs, and none of them imports JAX
+    or the JAX package."""
+    scanned = {f.relative_to(PKG).as_posix() for f in PKG.rglob("*.py")}
+    new = {"graph/nonblocking.py", "graph/superround.py", "graph/program_cache.py"}
+    assert new <= scanned
+    for rel in new:
+        roots = {root for _line, root in _import_roots(PKG / rel)}
+        assert roots and not roots & FORBIDDEN, (rel, roots)

@@ -104,8 +104,9 @@ def test_lane_burst_chunking_and_pre_invalid_seeds_conduct():
     groups = [[int(i)] for i in rng.integers(0, n, size=80)]
     groups[5] = [0]
     counts, _ = _lanes(graphs, groups, max_words=1)
-    assert graphs[1].mirror_bursts == 3 and graphs[1].last_lanes_info == {
-        "depth": 3, "dispatches": 3}
+    # three chunks ride one chain program, as in JAX
+    assert graphs[1].mirror_bursts == 3 and graphs[1].last_lanes_info == graphs[0].last_lanes_info \
+        == {"depth": 3, "dispatches": 1}
     # group 5 seeds pre-invalid 0: it conducts into 0's valid dependents
     dense = DeviceGraph(node_capacity=n, edge_capacity=len(src) + 64, device="cpu")
     dense.add_nodes(n)
@@ -268,6 +269,49 @@ def test_adaptive_lanes_match_fixed_and_jax():
         _lanes(graphs, groups)
     assert out[True][0] == out[False][0] == [[63], [1]]
     np.testing.assert_array_equal(out[True][1], out[False][1])
+
+
+def test_adaptive_lanes_chain_matches_fixed():
+    """``tests/test_async_wave.py::test_adaptive_lanes_chain_matches_fixed``
+    through both packages: the chain of two stages under fixed and adaptive
+    passes gives the same counts and mask, and reports JAX's dispatch count,
+    ``ceil(depth / 8)`` (a 10-stage chain: 2)."""
+    graphs = two_chain_pair()
+    for g in graphs:
+        c_fixed, _ = g.run_waves_lanes_chain([[[0]], [[32]]])
+        mask_fixed = g.invalid_mask().copy()
+        assert g.last_lanes_info == {"depth": 2, "dispatches": 1}
+        g.clear_invalid()
+        g.set_adaptive_passes(True)
+        stages0 = g.adaptive_stages
+        c_ad, _ = g.run_waves_lanes_chain([[[0]], [[32]]])
+        assert g.adaptive_stages == stages0 + 1  # one count per dispatch call, as JAX
+        np.testing.assert_array_equal(g.invalid_mask(), mask_fixed)
+        assert np.asarray(c_ad).tolist() == np.asarray(c_fixed).tolist() == [[63], [1]]
+        g.clear_invalid()
+        stages = [[[i]] for i in range(0, 60, 6)]
+        counts, masks = g.run_waves_lanes_chain(stages)
+        assert g.last_lanes_info == {"depth": 10, "dispatches": 2}
+        g.out = ([c.tolist() for c in counts], [m[:64] for m in masks], g.invalid_mask())
+    (jc, jm, ji), (pc, pm, pi) = (g.out for g in graphs)
+    assert pc == jc
+    for a, b in zip(pm, jm):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(pi, ji)
+
+
+def test_multi_chunk_lane_burst_rides_the_chain_as_jax():
+    """A burst of more than ``32 * max_words`` groups on a fusible mirror is
+    one chain of chunks, as in JAX: the same counts and union, and the
+    chain's depth and dispatch count in ``last_lanes_info``."""
+    rng = np.random.default_rng(17)
+    n = 300
+    src, dst = random_dag(rng, n)
+    graphs = _pair(n, src, dst, build=True)
+    groups = [rng.choice(n, size=3, replace=False).tolist() for _ in range(70)]
+    _lanes(graphs, groups, max_words=1)
+    assert graphs[1].last_lanes_info == graphs[0].last_lanes_info == {"depth": 3,
+                                                                      "dispatches": 1}
 
 
 def _seq_pair(n, seed):

@@ -1,15 +1,19 @@
-"""Parity of the live twin (``stl_fusion_tpu_torch/live_path.py``, the
-blocking loop of ``perf/live_path.py``) with the same loop run through the
-JAX package: 20,000 nodes, 3 rounds, 64 lane groups, 200 churn edges a
-round (at this size 2,000 would overflow mirror rows every round and force
-rebuilds; 200 patches in, as 2,000 do at 10M). The loop is one function;
-``run_live(api=...)`` drives it through either package. Per round the
-per-group counts, the rows refreshed and the invalid count before, the
-table's stale set and values after the refresh and after the burst, and the
-mirror's patch, rebuild and pass counts must be EQUAL, and so must the
-lone waves' and the sequenced waves' results. Tolerance: exact."""
+"""Parity of the live twin (``stl_fusion_tpu_torch/live_path.py``: the
+blocking loop of ``perf/live_path.py``, its super-round loop and its chain
+loop) with the same loops run through the JAX package: 20,000 nodes, 3
+rounds, 64 lane groups, 200 churn edges a round (at this size 2,000 would
+overflow mirror rows every round and force rebuilds; 200 patches in, as
+2,000 do at 10M). The loop is one function; ``run_live(api=...)`` drives it
+through either package. Blocking: per round the per-group counts, the rows
+refreshed and the invalid count before, the table's stale set and values
+after the refresh and after the burst, and the mirror's patch, rebuild and
+pass counts must be EQUAL, and so must the lone waves' and the sequenced
+waves' results. Nonblocking: per harvested super-round the per-round
+counts, the stale set, the values and the host invalid mirror, and the
+loop's totals and counters must be EQUAL. Tolerance: exact."""
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 import stl_fusion_tpu.core as jcore
@@ -47,24 +51,45 @@ class Recorder:
                             t.stale_count(), g._h_invalid[: g.n_nodes].copy(), stats))
 
 
-def _run(api):
+    def before_dispatch(self, ctx, mode, k, group_ids):
+        t = ctx["table"]
+        self.events.append(("dispatch", mode, k, t._stale_host.copy(), _values(t)))
+
+    def after_harvest(self, ctx, mode, per_burst):
+        t, g = ctx["table"], ctx["backend"].graph
+        self.events.append(("harvest", mode, [np.asarray(c) for c in per_burst],
+                            t._stale_host.copy(), t.stale_count(), _values(t),
+                            g._h_invalid[: g.n_nodes].copy()))
+
+
+def _run(api, **kw):
     rec = Recorder()
-    record = run_live(**SHAPE, api=api, observer=rec)
+    record = run_live(**SHAPE, api=api, observer=rec, **kw)
     return record, rec.events
 
 
-def test_live_twin_matches_jax_run_of_the_same_loop():
-    jax_api = LiveApi(jcore, jgraph, {}, jnp.asarray, lambda: None, "stl_fusion_tpu (JAX)")
-    want, want_events = _run(jax_api)
-    got, got_events = _run(port_api("cpu"))
+def _same_events(got_events, want_events):
     assert [e[0] for e in got_events] == [e[0] for e in want_events]
-    assert [e[0] for e in got_events].count("burst") == SHAPE["rounds"]
     for g, w in zip(got_events, want_events):
         for a, b in zip(g, w):
-            if isinstance(b, np.ndarray):
+            if isinstance(b, list):
+                assert len(a) == len(b), g[0]
+                for x, y in zip(a, b):
+                    np.testing.assert_array_equal(x, y, err_msg=g[0])
+            elif isinstance(b, np.ndarray):
                 np.testing.assert_array_equal(a, b, err_msg=g[0])
             else:
                 assert a == b, (g[0], a, b)
+
+
+JAX_API = LiveApi(jcore, jgraph, {}, jnp.asarray, lambda: None, "stl_fusion_tpu (JAX)")
+
+
+def test_live_twin_matches_jax_run_of_the_same_loop():
+    want, want_events = _run(JAX_API, nonblocking=False)
+    got, got_events = _run(port_api("cpu"), nonblocking=False)
+    assert [e[0] for e in got_events].count("burst") == SHAPE["rounds"]
+    _same_events(got_events, want_events)
     for key in ("nodes", "edges", "mirror_levels", "live_wave_lat_served", "live_wave_seq_counts",
                 "live_total_inv", "live_churn_edges", "mirror_patches", "mirror_rebuilds",
                 "mirror_bursts"):
@@ -77,3 +102,44 @@ def test_live_twin_matches_jax_run_of_the_same_loop():
     assert got["mirror_patches"] >= SHAPE["rounds"]
     assert all(r["rebuilds"] == 0 and r["mirror_bursts"] == 1 for r in got["rounds"])
     assert got["live_total_inv"] > 0 and got["rounds"][1]["refreshed"] > 0
+
+
+@pytest.mark.parametrize("super_rounds", [True, False])
+def test_nonblocking_live_twin_matches_jax(super_rounds):
+    """``LIVE_NONBLOCKING=1`` with ``LIVE_SUPER_ROUNDS`` on (the default) and
+    off, at ``LIVE_FUSE_DEPTH=3``: the warm super-round, then one
+    super-round of all 3 rounds, through both packages."""
+    want, want_events = _run(JAX_API, super_rounds=super_rounds)
+    got, got_events = _run(port_api("cpu"), super_rounds=super_rounds)
+    assert got["live_mode"] == ("superround" if super_rounds else "chain")
+    assert [e[0] for e in got_events].count("harvest") == 1
+    _same_events(got_events, want_events)
+    for key in ("live_total_inv", "live_fused_chain_dispatches", "live_eager_fallback_rounds",
+                "live_churn_edges", "churn_rows_recomputed", "mirror_patches",
+                "mirror_rebuilds", "mirror_bursts", "live_superround", "live_fuse_depth"):
+        assert got[key] == want[key], key
+    assert got["live_eager_fallback_rounds"] == 0 and got["live_fused_chain_dispatches"] == 1
+    assert got["live_total_inv"] > 0
+    if super_rounds:
+        for key in ("live_superround_dispatches", "live_superround_eager_rounds",
+                    "live_superround_faults", "live_superround_restages",
+                    "live_superround_forced_harvests"):
+            assert got[key] == want[key], key
+        assert got["superround_programs"]["uncaptured"] == 0
+
+
+def test_live_loops_run_one_after_another_on_one_stack():
+    """``loops``: the blocking, super-round and chain loops on one built
+    stack (``chip_smoke.py``'s ``live_sr_10m`` runs this shape at 10M
+    rows): each loop reports its mode and lights rows, and no nonblocking
+    round falls back to the eager path."""
+    rec = run_live(**SHAPE, device="cpu",
+                   loops=[("blocking", 2), ("superround", 3), ("chain", 3)])
+    modes = [r["live_mode"] for r in rec["loops"]]
+    assert modes == ["blocking", "superround", "chain"]
+    assert rec["live_mode"] == "blocking" and rec["loops"][0]["live_rounds"] == 2
+    assert all(r["live_total_inv"] > 0 for r in rec["loops"])
+    assert rec["loops"][1]["live_superround_eager_rounds"] == 0
+    assert rec["loops"][1]["live_superround_dispatches"] == 1
+    assert rec["loops"][2]["live_eager_fallback_rounds"] == 0
+    assert set(rec["cold_start"]["programs"]) == {"superround", "chain"}

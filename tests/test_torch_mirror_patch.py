@@ -1,5 +1,5 @@
 """Parity of the port's mirror patch path with the JAX package's: the cases
-of ``tests/test_mirror_patch.py`` (all but the disk cache) run the same op
+of ``tests/test_mirror_patch.py`` (the disk cache's round trip included) run the same op
 sequence on a JAX ``DeviceGraph`` and on the port's, and every burst's count
 and newly id set, the invalid masks and the counters ``mirror_patches``,
 ``mirror_rebuilds``, ``mirror_bursts``, ``lat_waves``, ``passes`` and
@@ -328,10 +328,78 @@ def test_lat_carried_across_forced_relevel_and_blocked_by_pending_deltas():
         assert b.p.lat_waves == 1
 
 
+def _wait_for(path_glob, tmp_path, timeout=20.0):
+    import time
+
+    deadline = time.time() + timeout
+    while not list(tmp_path.glob(path_glob)) and time.time() < deadline:
+        time.sleep(0.05)
+    return list(tmp_path.glob(path_glob))
+
+
 def test_mirror_disk_cache_is_not_ported(monkeypatch, tmp_path):
-    monkeypatch.setenv("FUSION_MIRROR_CACHE", str(tmp_path))
+    """The disk mirror cache is ported now: ``enable_program_cache`` sets
+    ``FUSION_MIRROR_CACHE`` by default, as JAX's does, and a mirror build
+    with it set saves an entry in the port's own format (never a ``.npz``
+    the JAX package would read) instead of raising."""
+    from stl_fusion_tpu_torch.graph import enable_program_cache
+
+    monkeypatch.delenv("FUSION_MIRROR_CACHE", raising=False)
+    info = enable_program_cache(str(tmp_path))
+    assert info["mirror_cache_dir"] == str(tmp_path / "mirror")
+    assert info["jax_cache_dir"] is None and info["enabled"]
     g = DeviceGraph(16, 64, device="cpu")
     g.add_nodes(4)
     g.add_edges(np.array([0, 1]), np.array([1, 2]))
-    with pytest.raises(NotImplementedError, match="A.4"):
-        g.build_topo_mirror()
+    g.build_topo_mirror()
+    assert g.mirror_cache_misses == 1 and g.mirror_cache_hits == 0
+    g._mirror_cache_writer.join(20)
+    saved = list((tmp_path / "mirror").iterdir())
+    assert len(saved) == 1 and saved[0].name.endswith(DeviceGraph.MIRROR_CACHE_SUFFIX)
+    assert not list((tmp_path / "mirror").glob("*.npz"))
+
+
+def test_mirror_disk_cache_roundtrip(tmp_path, monkeypatch):
+    """JAX's ``test_mirror_disk_cache_roundtrip``: a second graph over the
+    same live edge set loads the built tables (a cache hit, no host build)
+    and serves the same waves as the JAX package, and the loaded mirror
+    still patches in place. Both packages share the cache root and never
+    read each other's entries."""
+    monkeypatch.setenv("FUSION_MIRROR_CACHE", str(tmp_path))
+    n = 96
+    src, dst = np.arange(n - 1), np.arange(1, n)
+
+    def fresh():
+        b = Both(n, 8 * n)
+        b.add_nodes(n)
+        b.add(src, dst)
+        return b
+
+    b1 = fresh()
+    b1.build_topo_mirror()
+    assert _wait_for("*.npz", tmp_path), "the JAX cache save did not land"
+    assert _wait_for("*" + DeviceGraph.MIRROR_CACHE_SUFFIX, tmp_path), \
+        "the port's cache save did not land"
+    assert (b1.p.mirror_cache_misses, b1.p.mirror_cache_hits) == (1, 0)
+    b2 = fresh()
+    b2.build_topo_mirror()
+    assert (b2.p.mirror_cache_hits, b2.j.mirror_cache_hits) == (1, 1)
+    assert b2.p._topo_mirror["lat"] is not None
+    assert b2.p._topo_mirror["level_starts"] == b1.p._topo_mirror["level_starts"]
+    assert b1.burst([10]) == n - 10
+    assert b2.burst([10]) == n - 10
+    assert b2.p.lat_waves == 1  # the loaded lat mirror served the lone wave
+    # a cache-loaded mirror still patches in place
+    b2.add([5], [60])
+    b2.clear_invalid()
+    assert b2.burst([5]) == n - 5
+    assert b2.p.mirror_patches == 1 and b2.p.mirror_rebuilds == 1
+    # a corrupt entry is a miss, and is removed
+    entry = next(tmp_path.glob("*" + DeviceGraph.MIRROR_CACHE_SUFFIX))
+    entry.write_bytes(b"not a mirror")
+    g = DeviceGraph(node_capacity=n, edge_capacity=8 * n, device="cpu")
+    g.add_nodes(n)
+    g.add_edges(src, dst)
+    g.build_topo_mirror()
+    assert (g.mirror_cache_hits, g.mirror_cache_misses) == (0, 1)
+    assert g.run_waves_union([[10]])[0] == n - 10
