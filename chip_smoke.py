@@ -20,7 +20,10 @@ user calls. Phases, each printing one JSON line:
    ``build_topo_mirror`` and one burst through the lat mirror, and the
    same burst with the mirror built but ``mirror="off"``: identical; then
    one ``invalidate_cascade_batch_lanes`` burst of 3 groups on the patched
-   mirror, each group's count equal to its union wave alone;
+   mirror, each group's count equal to its union wave alone; then the same
+   3 groups as one ``invalidate_cascade_batch_lanes_sharded`` burst on the
+   8-shard mesh (the packed mesh mirror), each count equal to the
+   single-card lane burst's;
 4. ``power_law_10m`` — the BASELINE stress graph (``power_law_dag(10M,
    avg_degree=3, seed=7)``) in ``DeviceGraph(device="cuda")`` with 1% of nodes
    epoch-bumped after capture: ``run_waves_union`` from 100,000 seeds,
@@ -45,6 +48,17 @@ user calls. Phases, each printing one JSON line:
    0, 31, 32 and 511 equal to the oracle; ``cascading_invalidations_per_sec``,
    the sweep's device time and idle share, its bound; the lat leg's 96
    lone waves (p50/p99/max; three checked against the oracle);
+7b. ``packed_10m`` — the twin of ``bench.py::run_sharded`` on
+   ``topo_10m``'s graph and 512 seed lists: ``PackedShardedGraph(words=16)``
+   on 8 logical shards, one batch of 512 waves (``run_wave_batches``, a
+   warm-up and 5 timed runs), per-lane counts equal to the topo sweep's,
+   lanes 0, 31, 32 and 511 equal to the oracle, ``packed_pull`` launched
+   once per level run plus the seed step and the group's early exits, no
+   ``topo_sweep`` and no ``wave_expand``; ``cascading_invalidations_per_sec``,
+   levels, host syncs per wave, device time and idle share of one profiled
+   batch, peak memory; then the ``packed=False`` branch (20 waves, each
+   equal to its topo lane) and the pull leg (``kernel="pull"``, 32 waves at
+   W = 1, its count the sum of lanes 0-31, lanes 0 and 31 the oracle's);
 8. ``profile`` — ``torch.profiler`` over one more 10M union wave and one
    sharded ring wave: device time by kernel, device calls per wave, the
    device's idle share, and the level kernel's launches (one per level);
@@ -79,6 +93,16 @@ user calls. Phases, each printing one JSON line:
    super-round (host ms and its split, device ms around the replay), then
    ``live_inv_per_s`` of each mode, occupancy, host stall, captures and
    peak memory;
+10c. ``mesh_lanes_10m`` — on the same stack after ``live_sr_10m``, a
+   blocking loop of the live twin whose burst is a 512-group
+   ``cascade_rows_lanes_sharded`` on 8 logical shards (3 rounds of churn,
+   refresh and burst): round 1 builds the packed mesh mirror, rounds 2-3 patch it in
+   place (the same entry, ``patches`` rising, the patch batch counter up by
+   one a round); each burst equal to ``cascade_rows_lanes`` run from the
+   same state (counts, dense words, union, stale rows); one
+   ``mesh_lanes_10m_round`` line a round (build s or patch ms, burst ms and
+   its gated and apply parts from the backend's wave record, launches,
+   levels), the last burst profiled;
 11. ``kernels`` — every kernel form against its plain PyTorch version on the
    card, exact: ``or_popcount``; ``topo_sweep`` (the whole topo_10m sweep,
    its widest level alone, the lane burst's sweep on the churned mirror,
@@ -86,7 +110,11 @@ user calls. Phases, each printing one JSON line:
    sweep at k = 10 in-slots on a ``build_topo_mirror(k=8)`` mirror with
    patched rows past 8 slots); ``lane_finish`` on that burst's bits, and at
    W = 64 (the column-chunked form); ``block_refresh`` at the live shape
-   (and a correctness case at base 37 with int32 rows of 3); ``wave_expand`` (pure) and
+   (and a correctness case at base 37 with int32 rows of 3); ``packed_pull`` at
+   ``packed_10m``'s first and widest levels (W = 16, k = 8), the last mesh
+   burst's first level (k = 10, gated) and the pull leg's first level (W =
+   1, the null row), and ``lane_finish`` at the mesh shape (the identity
+   row map); ``wave_expand`` (pure) and
    ``wave_expand_merge`` at the union wave's first and widest levels;
    ``wave_expand_shards`` at the sharded wave's first level; the ring from
    2-D rows (the main path's form) and from a list. Each with its time (CUDA
@@ -102,15 +130,18 @@ which loads the entry; the loaded tables must equal the built ones, and the
 phase's checks run on the loaded mirror (``mirror_cache``: the cold build's
 and the load's seconds).
 
-The main path is six paths, each driven with every kernel's launch count
-set to 0 just before it and read just after: phases 3-4 (the dense wave)
-must launch ``or_popcount`` and ``wave_expand_merge``, phase 5 (the sharded
-wave) ``or_popcount``, ``wave_expand_shards`` and ``ring_all_gather``,
-phases 6-7 (the mirror) ``topo_sweep`` and no ``wave_expand``, phase 9 (the
+The main path is eight paths, each driven with every kernel's launch count
+set to 0 just before it and read just after: phases 3-4 (the dense wave,
+with HelloCart's mesh lane burst) must launch ``or_popcount`` and
+``wave_expand_merge``, phase 5 (the sharded wave) ``or_popcount``,
+``wave_expand_shards`` and ``ring_all_gather``, phases 6-7 (the mirror)
+``topo_sweep`` and no ``wave_expand``, phase 7b (the mesh leg)
+``packed_pull`` and no ``topo_sweep`` or ``lane_finish``, phase 9 (the
 churn) ``topo_sweep`` and ``lane_finish``, phase 10 (the live loop)
-``topo_sweep``, ``lane_finish`` and ``block_refresh``, and phase 10b (the
+``topo_sweep``, ``lane_finish`` and ``block_refresh``, phase 10b (the
 super-round and chain loops, whose launches are CUDA graph replays: each
-replay adds the launches its capture recorded) the same three. Any
+replay adds the launches its capture recorded) the same three, and phase
+10c (the mesh loop) ``packed_pull`` and ``lane_finish``. Any
 failure raises and the script exits non-zero. The last lines are the kernel
 summary (the forms the main path runs), the ``nvidia-smi`` name and power
 limit, and
@@ -477,6 +508,33 @@ async def _hellocart(device) -> dict:
     expect(fired == [c_total] and all(c.is_invalidated for c in nodes.values()),
            "lane burst: watched total eager, the groups' nodes invalid")
     expect(await totals.total() == truth(), "total after invalidate_cascade_batch_lanes")
+
+    # the same 3 groups as a lane burst on the 8-shard mesh (the packed mesh
+    # mirror, built here, its levels packed_pull launches): each group's
+    # count equals the single-card lane burst's from the same state (the
+    # graph's run_waves_lanes, with the state restored after it)
+    c_total, fired = await watch_total()
+    nodes = {name: await capture(fn) for name, fn in (
+        ("apple", lambda: products.get("apple")), ("banana", lambda: products.get("banana")),
+        ("cherry", lambda: products.get("cherry")),
+        ("alice", lambda: carts.cart_total("alice")))}
+    groups = [[nodes["apple"]], [nodes["banana"], nodes["cherry"]], [nodes["alice"]]]
+    backend.flush()
+    saved = (graph.device_arrays().invalid.clone(), graph._h_invalid.copy())
+    single = graph.run_waves_lanes([[backend.id_for(c) for c in g] for g in groups])[0].tolist()
+    graph.device_arrays().invalid.copy_(saved[0])
+    graph._h_invalid = saved[1].copy()
+    products.price["cherry"] += 1.0
+    mesh_counts = backend.invalidate_cascade_batch_lanes_sharded(groups, mesh).tolist()
+    pg = backend._packed_mirror["graph"]
+    out["mesh_lanes"] = {"counts": mesh_counts, "single_card": single, "shards": pg.mesh.size,
+                         "rows": pg.n_global, "k": pg.k, "levels": pg.last_stats.get("levels")}
+    expect(mesh_counts == single == [3, 5, 2], f"mesh lane burst counts {out['mesh_lanes']}")
+    expect(pg.mesh.size == N_SHARDS and pg.in_src.device.type == device.type,
+           "the packed mesh mirror lives on the card mesh")
+    expect(fired == [c_total] and all(c.is_invalidated for c in nodes.values()),
+           "mesh lane burst: watched total eager, the groups' nodes invalid")
+    expect(await totals.total() == truth(), "total after invalidate_cascade_batch_lanes_sharded")
     out["mirror_rebuilds"] = graph.mirror_rebuilds
     out.update(nodes=backend.node_count, edges=backend.edge_count, waves=backend.waves_run)
     return out
@@ -820,7 +878,7 @@ def phase_topo_10m(device, card: str, n: int = N_NODES, n_seeds: int = N_UNION_S
 
     oracle = LevelBfsOracle(leg["src"], leg["dst"], np.zeros(len(leg["src"]), np.int32),
                             np.zeros(n, np.int32), n)
-    lanes = {}
+    lanes, lane_ids = {}, {}
     for lane in (0, 31, 32, 511):
         w, b = divmod(lane, 32)
         rows = torch.nonzero(((state.invalid_bits[:, w] >> b) & 1).bool() & ga.is_real)
@@ -829,6 +887,7 @@ def phase_topo_10m(device, card: str, n: int = N_NODES, n_seeds: int = N_UNION_S
         if not np.array_equal(got, want_ids):
             raise AssertionError(f"topo_10m: lane {lane} differs from the oracle")
         lanes[lane] = {"newly": want_count, "oracle_levels": depth}
+        lane_ids[lane] = want_ids
 
     # where one run of the batches' time goes
     bench.run_batches(leg)
@@ -875,7 +934,127 @@ def phase_topo_10m(device, card: str, n: int = N_NODES, n_seeds: int = N_UNION_S
         out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     emit(out)
     out["leg"] = leg
+    out["lane_ids"] = lane_ids  # the oracle's ids of lanes 0, 31, 32, 511 (packed_10m)
     return out
+
+
+def phase_packed_10m(device, card: str, topo: dict) -> dict:
+    """The twin of ``bench.py::run_sharded`` (``stl_fusion_tpu_torch/bench.py``)
+    on ``topo_10m``'s graph and its 512 seed lists of 100,000 seeds. Packed
+    branch: ``PackedShardedGraph(words=16)`` on 8 logical shards, one batch
+    of 512 waves through ``run_wave_batches`` (a warm-up and 5 timed runs);
+    its per-lane counts equal the topo sweep's (both graphs all valid), lanes
+    0, 31, 32 and 511 the oracle's ids; ``packed_pull`` launched once per
+    level run plus the seed step (and the group's early exits), no
+    ``topo_sweep`` and no ``wave_expand``; one batch under
+    ``torch.profiler``. Then the ``packed=False`` branch on the first 20
+    lists (each wave's count the topo lane's) and the pull leg
+    (``kernel="pull"``, W = 1) on the first 32 (its count the cumulative
+    real popcount, the sum of those lanes; lanes 0 and 31 the oracle's
+    ids)."""
+    import numpy as np
+    import torch
+
+    from stl_fusion_tpu_torch import bench
+    from stl_fusion_tpu_torch.ops import packed_pull as ppp
+    from stl_fusion_tpu_torch.ops import topo_wave as tpw
+    from stl_fusion_tpu_torch.ops import wave as wave_mod
+    from stl_fusion_tpu_torch.ops.topo_wave import _lane_counts_blocked
+
+    def fail(what):
+        raise AssertionError(f"packed_10m: {what}")
+
+    def lane_ids(words, lane):
+        w, b = divmod(lane, 32)
+        return torch.nonzero(((words[:, w] >> b) & 1).bool()).flatten().cpu().numpy()
+
+    tleg = topo["leg"]
+    n, edges, lists = tleg["n_nodes"], (tleg["src"], tleg["dst"]), tleg["seed_lists"][-1]
+    tga, tbits = tleg["wave32"].garrays, tleg["state"].invalid_bits  # the last batch's bits
+    want_lanes = _lane_counts_blocked(torch.where(tga.is_real[:, None], tbits, 0),
+                                      tleg["words"]).cpu().numpy().astype(np.int64)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    out = {"phase": "packed_10m", "card": card, "nodes": n}
+
+    # the packed branch
+    t0 = time.perf_counter()
+    leg = bench.build_sharded_leg(n, seeds_per_wave=N_UNION_SEEDS, packed=True, words=16,
+                                  device=device, edges=edges,
+                                  seed_lists=[lists])
+    setup_s = time.perf_counter() - t0
+    pg = leg["graph"]
+    before = (ppp.launches, ppp.early_exits, tpw.launches, wave_mod.launches)
+    rec = bench.run_sharded_leg(leg)
+    runs, st = 1 + len(rec["run_s"]), pg.last_stats
+    made, skipped = ppp.launches - before[0], ppp.early_exits - before[1]
+    if made != runs * (1 + st["syncs"] * ppp.GROUP) or made - skipped != runs * (1 + st["levels"]):
+        fail(f"{made} packed_pull launches ({skipped} early exits) in {runs} runs of "
+             f"{st['levels']} levels and {st['syncs']} syncs")
+    if tpw.launches != before[2] or wave_mod.launches != before[3]:
+        fail("topo_sweep or wave_expand was launched")
+    got_lanes = _lane_counts_blocked(pg.invalid[:n], 16).cpu().numpy().astype(np.int64)
+    if not np.array_equal(got_lanes, want_lanes):
+        fail(f"per-lane counts differ from the topo sweep's in "
+             f"{int((got_lanes != want_lanes).sum())} lanes")
+    if rec["total_invalidated"] != int(want_lanes.sum()):
+        fail(f"total {rec['total_invalidated']} != the topo sweep's {int(want_lanes.sum())}")
+    for lane in (0, 31, 32, 511):
+        if not np.array_equal(lane_ids(pg.invalid[:n], lane), topo["lane_ids"][lane]):
+            fail(f"lane {lane} differs from the oracle")
+    # where one batch's time goes
+    wall_ms, by_name, calls, seen = profile_checked(
+        device, lambda: pg.run_wave_batches(leg["seeds_dev"]),
+        {"packed_pull": 1 + st["syncs"] * ppp.GROUP}, "packed_10m")
+    dev_ms = sum(v["ms"] for v in by_name.values())
+    counts = rec.pop("counts")
+    out.update({k: v for k, v in rec.items()}, setup_s=setup_s,
+               levels=st["levels"], syncs_per_batch=st["syncs"],
+               host_syncs_per_wave=st["syncs"] / leg["waves_per_batch"],
+               early_exits_per_batch=st["early_exits"], launches_per_batch=made // runs,
+               batch_ms_median=rec["elapsed_s"] / leg["n_batches"] * 1e3,
+               profile_wall_ms=wall_ms, device_ms=dev_ms, idle_share=1 - dev_ms / wall_ms,
+               device_calls=calls, packed_pull_device_ms=seen["packed_pull"][0] * seen[
+                   "packed_pull"][1], packed_pull_profiled_launches=seen["packed_pull"][1],
+               top_kernels=dict(sorted(by_name.items(), key=lambda kv: -kv[1]["ms"])[:6]),
+               rows=pg.n_global, k=pg.k, lanes_checked=[0, 31, 32, 511],
+               batch_counts=counts.tolist())
+
+    # the packed=False branch: one wave at a time, the first 20 lists
+    sleg = bench.build_sharded_leg(n, seeds_per_wave=N_UNION_SEEDS, n_waves=20, packed=False,
+                                   device=device, edges=edges,
+                                   seed_lists=[lists[:20]])
+    srec = bench.run_sharded_leg(sleg)
+    if srec["counts"].tolist() != want_lanes[:20].tolist():
+        fail("the packed=False waves' counts differ from the topo lanes'")
+    srec.pop("counts")
+    out["unpacked"] = srec
+    del sleg
+
+    # the pull leg: W = 1, the first 32 lists
+    pleg = bench.build_pull_leg(n, seeds_per_wave=N_UNION_SEEDS, n_waves=32, device=device,
+                                edges=edges, seed_lists=[lists[:32]])
+    before = ppp.launches
+    prec = bench.run_topo_leg(pleg)
+    if prec["total"] != int(want_lanes[:32].sum()):
+        fail(f"the pull leg's count {prec['total']} != the sum of lanes 0-31, "
+             f"{int(want_lanes[:32].sum())}")
+    bits = pleg["state"].invalid_bits[:n].view(-1, 1)
+    for lane in (0, 31):
+        if not np.array_equal(lane_ids(bits, lane), topo["lane_ids"][lane]):
+            fail(f"the pull leg's lane {lane} differs from the oracle")
+    pstats = {}
+    pleg["state"].invalid_bits.zero_()
+    pleg["wave32"](pleg["seed_bits"][0], pleg["state"], pstats)
+    pruns = 2 + len(prec["sweep_s"])  # the warm-up, the timed runs, the run just above
+    if ppp.launches - before != pruns * (1 + pstats["syncs"] * ppp.GROUP):
+        fail("the pull leg's packed_pull launches are not one per level and seed step")
+    prec_out = bench.record(pleg, prec, None)
+    out["pull"] = {**prec_out, **pstats, "rows": pleg["graph"].n_tot + 1, "k": pleg["graph"].k}
+    if device.type == "cuda":
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    emit(out)
+    return {"out": out, "leg": leg, "pull_leg": pleg}
 
 
 #: perf/live_path.py's defaults (LIVE_ROUNDS, LIVE_EDGE_CHURN, LIVE_SCALAR_CHURN,
@@ -1131,7 +1310,7 @@ def phase_churn(device, card: str, level: dict) -> dict:
     return out
 
 
-LIVE_LOOPS = (("blocking", 6), ("superround", 6), ("chain", 3))
+LIVE_LOOPS = (("blocking", 6), ("superround", 6), ("chain", 3), ("mesh", 3))
 
 
 def _live_state(backend, table) -> dict:
@@ -1205,10 +1384,13 @@ def phase_live(device, card: str, level: dict, paths: dict, reset_counts, read_c
     import numpy as np
     import torch
 
+    from stl_fusion_tpu_torch.diagnostics.metrics import global_metrics
     from stl_fusion_tpu_torch.live_path import run_live
     from stl_fusion_tpu_torch.ops import block_refresh as brf
+    from stl_fusion_tpu_torch.ops import packed_pull as ppp
     from stl_fusion_tpu_torch.ops import topo_wave as tpw
     from stl_fusion_tpu_torch.ops.bitops import unpack_words_host
+    from stl_fusion_tpu_torch.parallel import graph_mesh
 
     n, src, dst = level["n"], level["src"], level["dst"]
     cuda = device.type == "cuda"
@@ -1271,8 +1453,12 @@ def phase_live(device, card: str, level: dict, paths: dict, reset_counts, read_c
             self.stale_pre = table._stale_host.copy()
             self.rec = {"refresh_device_ms": dev_ms, "block_refresh_ms": kernel_ms,
                         "stale_left": int(table.stale_count())}
+            if self.mode == "mesh":
+                self.mesh_before_burst(ctx, rnd)
 
         def after_burst(self, ctx, rnd, group_ids, counts, stats):
+            if self.mode == "mesh":
+                return self.mesh_after_burst(ctx, rnd, group_ids, counts)
             backend, block, table = ctx["backend"], ctx["block"], ctx["table"]
             dg = backend.graph
             if stats["rebuilds"] or stats["mirror_bursts"] != 1 or not stats["patched"]:
@@ -1311,6 +1497,102 @@ def phase_live(device, card: str, level: dict, paths: dict, reset_counts, read_c
             self.rec.update(union=int(union.sum()), scalar_rows_reached=reached)
             rounds.append(self.rec)
 
+        def mesh_before_burst(self, ctx, rnd):
+            """The mesh loop, just before its burst: the packed mirror built at
+            round 0 and patched in place after (the same entry, ``patches``
+            rising, the patch batch counter up by one), timed here so the
+            burst's time is its own; the state saved for the single-card
+            check; the last round's burst profiled."""
+            backend, table = ctx["backend"], ctx["table"]
+            batches = global_metrics().counter("fusion_mirror_patch_batches_total")
+            b0, existed = batches.value, backend._packed_mirror is not None
+            t = time.perf_counter()
+            entry = backend.packed_mirror(mesh)
+            sync(device)
+            dt = time.perf_counter() - t
+            pg = entry["graph"]
+            rec = {"round": rnd, "patches": pg.patches}
+            if rnd == 0:
+                if existed or pg.patches:
+                    fail("mesh round 0 did not build a fresh packed mirror")
+                self.mesh_entry = entry
+                rec.update(mirror="build", mirror_build_s=dt, rows=pg.n_global, k=pg.k,
+                           shards=pg.mesh.size)
+            else:
+                if (entry is not self.mesh_entry or pg.patches <= self.mesh_rounds[-1]["patches"]
+                        or batches.value != b0 + 1):
+                    fail(f"mesh round {rnd}: the packed mirror was not patched in place "
+                         f"(same entry {entry is self.mesh_entry}, patches {pg.patches}, "
+                         f"patch batches +{batches.value - b0})")
+                rec.update(mirror="patch", patch_ms=dt * 1e3)
+            self.mesh_rounds.append(rec)
+            self.s0 = _live_state(backend, table)
+            self.l0 = (ppp.launches, ppp.early_exits, tpw.lane_finish_launches)
+            self.prof = None
+            if rnd == self.mesh_n - 1:  # the last burst, under torch.profiler
+                from torch.profiler import ProfilerActivity, profile
+
+                sync(device)
+                self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                self.prof.__enter__()
+                self.t_prof = time.perf_counter()
+
+        def mesh_after_burst(self, ctx, rnd, group_ids, counts):
+            """The mesh burst against ``cascade_rows_lanes`` run from the same
+            state (restored from the copy taken before it): per-group
+            counts, the dense words, the host invalid mirror (the union) and
+            the table's stale rows; then the mesh burst's state put back."""
+            backend, block, table = ctx["backend"], ctx["block"], ctx["table"]
+            rec = self.mesh_rounds[-1]
+            pg = backend._packed_mirror["graph"]
+            if self.prof is not None:
+                sync(device)
+                wall = (time.perf_counter() - self.t_prof) * 1e3
+                self.prof.__exit__(None, None, None)
+                by_name, calls = device_times(self.prof)
+                dev = sum(v["ms"] for v in by_name.values())
+                rec["profile"] = {
+                    "wall_ms": wall, "device_ms": dev, "idle_share": 1 - dev / wall,
+                    "device_calls": calls,
+                    "packed_pull": kernel_calls(by_name, SYMBOLS["packed_pull"]),
+                    "lane_finish": kernel_calls(by_name, SYMBOLS["lane_finish"]),
+                    "top_kernels": dict(sorted(by_name.items(), key=lambda kv: -kv[1]["ms"])[:6])}
+            rec.update(launches={"packed_pull": ppp.launches - self.l0[0],
+                                 "early_exits": ppp.early_exits - self.l0[1],
+                                 "lane_finish": tpw.lane_finish_launches - self.l0[2]},
+                       levels=pg.last_stats.get("levels"), syncs=pg.last_stats.get("syncs"),
+                       newly=int(counts.sum()), groups=len(group_ids))
+            # the backend's wave record: the gated lanes (the device wave,
+            # lane_finish, the counts read back), then the union's apply
+            wave = backend.profiler.recent(1)[-1]
+            if wave["kind"] != "sharded_lanes":
+                fail(f"mesh round {rnd}: the last wave record is {wave['kind']!r}")
+            rec.update(gated_lanes_ms=wave["device_ms"], apply_ms=wave["apply_ms"])
+            s1 = _live_state(backend, table)
+            saved = (tpw.launches, tpw.lane_finish_launches, brf.launches, ppp.launches,
+                     ppp.early_exits)
+            journal, backend._journal = backend._journal, []
+            _restore_live_state(backend, table, self.s0)
+            want = backend.cascade_rows_lanes(block, group_ids)
+            s2 = _live_state(backend, table)
+            (tpw.launches, tpw.lane_finish_launches, brf.launches, ppp.launches,
+             ppp.early_exits) = saved
+            _restore_live_state(backend, table, s1)
+            backend._journal = journal + backend._journal
+            diffs = [name for name, same in (
+                ("counts", np.array_equal(counts, want)),
+                ("invalid words", torch.equal(s1["words"], s2["words"])),
+                ("union", np.array_equal(s1["h_invalid"], s2["h_invalid"])),
+                ("stale rows", np.array_equal(s1["stale"], s2["stale"])),
+            ) if not same]
+            if diffs or int(counts.sum()) == 0:
+                fail(f"mesh round {rnd}: the mesh burst differs from cascade_rows_lanes in "
+                     f"{diffs} (newly {int(counts.sum())}, single card {int(want.sum())})")
+            rec["union"] = int(s1["h_invalid"][:n].sum())
+            if rnd == self.mesh_n - 1:  # the last burst's inputs, for phase_kernels
+                blocked = pg.put_blocked(unpack_words_host(self.s0["words"].cpu().numpy(), n))
+                self.mesh_last = {"pg": pg, "groups": group_ids, "blocked_pre": blocked}
+
         def after_loop(self, ctx):
             table = ctx["table"]
             out["n_cap"] = ctx["backend"].graph.n_cap
@@ -1333,6 +1615,14 @@ def phase_live(device, card: str, level: dict, paths: dict, reset_counts, read_c
             out["mirror_cache"] = reload_mirror_from_cache(g, device, cold_s)
 
         def begin_loop(self, ctx, mode, n_rounds):
+            self.mode = mode = LIVE_LOOPS[self.loop_i][0]  # "mesh" runs as "blocking"
+            self.loop_i += 1
+            if mode == "mesh":
+                reset_counts()  # the mesh lanes path, read just after its loop
+                if cuda:
+                    torch.cuda.reset_peak_memory_stats()
+                self.mesh_rounds, self.mesh_entry, self.mesh_last = [], None, None
+                self.mesh_n = n_rounds
             if mode == "superround":
                 paths["live"] = read_counts()  # the blocking path, read just after it
                 out["max_memory_allocated"] = torch.cuda.max_memory_allocated() if cuda else None
@@ -1389,17 +1679,29 @@ def phase_live(device, card: str, level: dict, paths: dict, reset_counts, read_c
                                "masks": len(got_masks)}
 
         def end_loop(self, ctx, mode, rec):
+            mode = self.mode
             if mode == "superround" and cuda:
                 out["sr_max_memory_allocated"] = torch.cuda.max_memory_allocated()
+            if mode == "mesh":
+                paths["mesh_lanes"] = read_counts()
+                out["mesh_max_memory_allocated"] = torch.cuda.max_memory_allocated() if cuda \
+                    else None
             if mode == "chain":
                 paths["live_sr"] = read_counts()
                 self.programs = [p for p in ctx["block"]._dev_refresh.values()]
                 self.mirror = ctx["backend"].graph._topo_mirror
 
+    mesh = graph_mesh(N_SHARDS, device=device)
+
+    def mesh_burst(backend, block, group_ids):
+        return backend.cascade_rows_lanes_sharded(block, group_ids, mesh)
+
     checks = Checks()
+    checks.loop_i = 0
     rec = run_live(n_nodes=n, edges=(src, dst), device=device, observer=checks,
-                   loops=LIVE_LOOPS)
-    blocking, sr, chain = rec["loops"]
+                   loops=[("blocking", r, mesh_burst) if name == "mesh" else (name, r)
+                          for name, r in LIVE_LOOPS])
+    blocking, sr, chain, mesh_loop = rec["loops"]
     for r, extra in zip(blocking["rounds"], rounds):
         r.update(extra)
         emit({"phase": "live_10m_round", **r})
@@ -1409,6 +1711,38 @@ def phase_live(device, card: str, level: dict, paths: dict, reset_counts, read_c
           if k not in ("rounds", "sr_exact", "sr_max_memory_allocated")})
     out["last_union"] = checks.last_union
     out["live_sr"] = phase_live_sr(card, rec, sr, chain, blocking, checks, out)
+    out["mesh_lanes"] = phase_mesh_lanes(card, mesh_loop, checks, out)
+    out["mesh_last"] = checks.mesh_last
+    return out
+
+
+def phase_mesh_lanes(card: str, mesh_loop: dict, checks, live_out: dict) -> dict:
+    """``mesh_lanes_10m``'s lines, from the mesh loop :func:`phase_live`
+    ran on the live stack: one ``mesh_lanes_10m_round`` line a round (the
+    packed mirror's build seconds or patch ms, the burst's host ms, its
+    launches, levels and host syncs, the union), then the summary with the
+    last burst's profile. Every burst was held against ``cascade_rows_lanes``
+    in the loop's observer."""
+    rounds = checks.mesh_rounds
+    if len(rounds) != len(mesh_loop["rounds"]) or not rounds:
+        raise AssertionError("mesh_lanes_10m: the observer missed mesh rounds")
+    for rec, loop_rec in zip(rounds, mesh_loop["rounds"]):
+        rec.update(burst_ms=loop_rec["burst_ms"], refresh_ms=loop_rec["refresh_ms"],
+                   refreshed=loop_rec["refreshed"])
+        emit({"phase": "mesh_lanes_10m_round", "card": card,
+              **{k: v for k, v in rec.items() if k != "profile"}})
+    out = {"phase": "mesh_lanes_10m", "card": card, "rounds": len(rounds),
+           "shards": rounds[0]["shards"], "rows": rounds[0]["rows"], "k": rounds[0]["k"],
+           "mirror_build_s": rounds[0]["mirror_build_s"],
+           "patch_ms": [r["patch_ms"] for r in rounds[1:]],
+           "burst_ms": [r["burst_ms"] for r in rounds],
+           "gated_lanes_ms": [r["gated_lanes_ms"] for r in rounds],
+           "apply_ms": [r["apply_ms"] for r in rounds], "newly": [r["newly"] for r in rounds],
+           "launches": [r["launches"] for r in rounds], "levels": [r["levels"] for r in rounds],
+           "syncs": [r["syncs"] for r in rounds], "exact_vs_cascade_rows_lanes": True,
+           "live_inv_per_s": mesh_loop["live_inv_per_s"], "profiled_burst": rounds[-1]["profile"],
+           "max_memory_allocated": live_out.get("mesh_max_memory_allocated")}
+    emit(out)
     return out
 
 
@@ -1519,6 +1853,12 @@ def profile_device(device, fn) -> tuple:
         fn()
         sync(device)
         wall_ms = (time.perf_counter() - t) * 1e3
+    return (wall_ms, *device_times(prof))
+
+
+def device_times(prof) -> tuple:
+    """A finished ``torch.profiler`` session's device time by kernel name,
+    {name: {"ms", "calls"}}, and its device calls."""
     by_name, calls = {}, 0
     for ev in prof.key_averages():
         if ev.key.startswith("aten::"):
@@ -1531,7 +1871,7 @@ def profile_device(device, fn) -> tuple:
             rec["ms"] += dev_us / 1e3
             rec["calls"] += ev.count
             calls += ev.count
-    return wall_ms, by_name, calls
+    return by_name, calls
 
 
 def kernel_calls(by_name: dict, symbol: str) -> tuple:
@@ -1578,6 +1918,7 @@ SYMBOLS = {
     "topo_sweep": "topo_sweep_kernel",
     "lane_finish": "lane_finish_kernel",
     "block_refresh": "block_refresh_kernel",
+    "packed_pull": "packed_pull_kernel",
 }
 
 
@@ -1842,8 +2183,153 @@ def wide_mirror_rows(device, rng, row, check, restored, timed_pair, src_topo, re
         union_check={"seeds": len(seeds), "newly": int(c_m)})
 
 
+def pull_levels(tables, seeds, node_epoch, invalid, null_row: int = -1) -> dict:
+    """A packed pull wave stepped one kernel launch at a time from ``seeds``
+    over ``invalid`` (updated in place to the wave's end): the first level's
+    and the widest level's inputs (frontier, invalid before), cloned, the
+    rows each level lit, and the levels."""
+    import torch
+
+    from stl_fusion_tpu_torch.ops import packed_pull as ppp
+
+    in_src, edge_epoch, is_real = tables
+    counts = torch.zeros(invalid.shape[1], dtype=torch.int32, device=invalid.device)
+    frontier, nxt = torch.empty_like(invalid), torch.empty_like(invalid)
+    ppp.packed_pull(in_src, edge_epoch, node_epoch, is_real, seeds, frontier, invalid, counts,
+                    gather=False)
+    out = {"first": (frontier.clone(), invalid.clone()), "lit": []}
+    while True:
+        inv0 = invalid.clone()
+        ppp.packed_pull(in_src, edge_epoch, node_epoch, is_real, frontier, nxt, invalid, counts,
+                        null_row=null_row)
+        lit = int((nxt != 0).any(dim=1).sum())
+        if lit > max(out["lit"], default=-1):
+            out["widest"], out["widest_level"] = (frontier.clone(), inv0), len(out["lit"])
+        out["lit"].append(lit)
+        if lit == 0:
+            return out
+        frontier, nxt = nxt, frontier
+
+
+def packed_pull_rows(device, packed, live, row, check, restored, timed_pair) -> None:
+    """``phase_kernels``' rows of ``packed_pull`` (each one level launch over
+    all rows, against its plain version from the same inputs, exact: next,
+    invalid, counts and the flag): ``packed_10m``'s first and widest levels
+    (W = 16, k = 8), the last mesh lane burst's first level (k = 8 + 2
+    slack, gated) and the pull leg's first level (W = 1, the null row); and
+    ``lane_finish`` at the mesh shape (that burst's final bits, the identity
+    row map, its pre-burst blocked words)."""
+    import torch
+
+    from stl_fusion_tpu_torch.ops import packed_pull as ppp
+    from stl_fusion_tpu_torch.ops import topo_wave as tpw
+    from stl_fusion_tpu_torch.ops.pull_wave import pack_lane_matrix
+    from stl_fusion_tpu_torch.parallel.packed_wave import _gated_inputs
+
+    src_pp = "stl_fusion_tpu_torch/csrc/packed_pull.cu"
+    rep_pp = ("stl_fusion_tpu/parallel/packed_wave.py:93 (XLA level body of "
+              "build_packed_sharded_wave; no Pallas kernel)")
+    rep_pull = ("stl_fusion_tpu/ops/pull_wave.py:159 (XLA level of _pull_wave32_impl; "
+                "no Pallas kernel)")
+
+    def level_row(name, replaces, tables, node_epoch, frontier, inv0, null_row, shape):
+        in_src, edge_epoch, is_real = tables
+        rows, w = inv0.shape
+        k = in_src.shape[1]
+        state = {}
+        for which in ("kernel", "plain"):
+            state[which] = (inv0.clone(), torch.empty_like(inv0),
+                            torch.zeros(w, dtype=torch.int32, device=device),
+                            torch.zeros(1, dtype=torch.int32, device=device))
+        zero_c, zero_f = torch.zeros(w, dtype=torch.int32, device=device), torch.zeros(
+            1, dtype=torch.int32, device=device)
+        calls = {}
+        for which, fn in (("kernel", ppp.packed_pull), ("plain", ppp.packed_pull_plain)):
+            inv, nxt, counts, flag = state[which]
+
+            def one(fn=fn, inv=inv, nxt=nxt, counts=counts, flag=flag):
+                fn(in_src, edge_epoch, node_epoch, is_real, frontier, nxt, inv, counts,
+                   flag_out=flag, null_row=null_row)
+            calls[which] = restored([(inv, inv0), (counts, zero_c), (flag, zero_f)], one)
+        calls["kernel"][0]()
+        calls["plain"][0]()
+        e = check(name, state["kernel"], state["plain"])
+        nxt = state["kernel"][1]
+        lit = int((nxt != 0).any(dim=1).sum())
+        live_slots = int((edge_epoch == node_epoch[:, None]).sum())
+        ms, plain_ms, with_ms, restore_ms = timed_pair(calls["kernel"][0], calls["kernel"][1],
+                                                       calls["plain"][0], plain_reps=3)
+        row(name, "packed_pull", src_pp, replaces, e, ms, plain_ms,
+            rows * (8 * k + 5 + 12 * w) + lit * 4 * w, (live_slots + 4 * rows) * w, None,
+            call=calls["kernel"][0], shape=f"{rows} rows x int32[{w}], k={k}; {shape}",
+            ms_with_restore=with_ms, restore_ms=restore_ms, lit_rows=lit,
+            live_slots=live_slots, gathered_bytes=live_slots * 4 * w,
+            newly=int(state["kernel"][2].long().sum()))
+
+    # packed_10m: its batch's wave stepped level by level
+    pg, leg = packed["leg"]["graph"], packed["leg"]
+    tables = (pg.in_src, pg.edge_epoch, pg.is_real)
+    inv = torch.zeros_like(pg.invalid)
+    lv = pull_levels(tables, leg["seeds_dev"][0], pg.node_epoch, inv)
+    level_row("packed_pull", rep_pp, tables, pg.node_epoch, *lv["first"], -1,
+              f"level 0 of packed_10m's 512 waves ({lv['lit'][0]} rows lit)")
+    wl = lv["widest_level"]
+    level_row("packed_pull (widest level)", rep_pp, tables, pg.node_epoch, *lv["widest"], -1,
+              f"level {wl} of {len(lv['lit'])} ({lv['lit'][wl]} rows lit)")
+    del lv, inv
+
+    # the last mesh lane burst (k = 10) from its pre-burst blocked words
+    last = live["mesh_last"]
+    mpg, blocked = last["pg"], last["blocked_pre"]
+    mat, words = pack_lane_matrix(last["groups"], pad_id=mpg.n_global, n_valid=mpg.n_nodes)
+    seeds, node_epoch = _gated_inputs(mpg, torch.from_numpy(mat).to(device), blocked, words)
+    mtables = (mpg.in_src, mpg.edge_epoch, mpg.is_real)
+    minv = torch.zeros_like(seeds)
+    lv = pull_levels(mtables, seeds, node_epoch, minv)
+    level_row("packed_pull (burst level)", rep_pp, mtables, node_epoch, *lv["first"], -1,
+              f"level 0 of mesh_lanes_10m's last burst, {len(last['groups'])} groups, "
+              f"{len(lv['lit'])} levels")
+    del lv, seeds
+
+    # lane_finish at the mesh shape: that burst's final bits
+    gk, gp = blocked.clone(), blocked.clone()
+    got = tpw.lane_finish(minv, mpg.is_real, mpg._rows, gk)
+    want = tpw.lane_finish_plain(minv, mpg.is_real, mpg._rows, gp)
+    e = check("lane_finish (mesh)", [got[0], got[1], got[2], gk], [want[0], want[1], want[2], gp])
+    union = int(got[1])
+    call, restore = restored([(gk, blocked)],
+                             lambda: tpw.lane_finish(minv, mpg.is_real, mpg._rows, gk))
+    plain_call, _ = restored([(gp, blocked)],
+                             lambda: tpw.lane_finish_plain(minv, mpg.is_real, mpg._rows, gp))
+    ms, plain_ms, with_ms, restore_ms = timed_pair(call, restore, plain_call, plain_reps=3)
+    rows_n, real_n = mpg.n_global, int(mpg.is_real.sum())
+    row("lane_finish (mesh)", "lane_finish", "stl_fusion_tpu_torch/csrc/lane_finish.cu",
+        "stl_fusion_tpu/parallel/packed_wave.py:169 (XLA epilogue of _build_gated_lane_burst; "
+        "no Pallas kernel)", e, ms, plain_ms,
+        # the epilogue's own bytes: each row's W words and is_real, the
+        # blocked words read and written, the newly words, the lane counts
+        rows_n * (4 * words + 1) + 3 * blocked.shape[0] * 4 + 4 * 32 * words,
+        rows_n * 32 * words, None, call=call,
+        shape=(f"{rows_n} rows x int32[{words}] ({real_n} real), identity row map, "
+               f"{blocked.shape[0]} blocked words, {union} union rows"),
+        ms_with_restore=with_ms, restore_ms=restore_ms, union_rows=union,
+        # what the kernel's design moves beyond that: the row map read, the
+        # blocked words gathered per real row, two atomics per union row
+        design_extra_bytes=rows_n * 4 + real_n * 4 + union * 8)
+
+    # the pull leg (W = 1, the null row n_tot): its first level
+    pleg = packed["pull_leg"]
+    ga, n_tot = pleg["wave32"].garrays, pleg["graph"].n_tot
+    ptables = (ga.in_src, ga.edge_epoch, ga.is_real)
+    pinv = torch.zeros(n_tot + 1, 1, dtype=torch.int32, device=device)
+    node_epoch = pleg["state"].node_epoch
+    lv = pull_levels(ptables, pleg["seed_bits"][0].view(-1, 1), node_epoch, pinv, null_row=n_tot)
+    level_row("packed_pull (pull leg)", rep_pull, ptables, node_epoch, *lv["first"], n_tot,
+              f"level 0 of the pull leg's 32 waves, {len(lv['lit'])} levels")
+
+
 def phase_kernels(device, main_launches: dict, level: dict, sg, topo: dict, churn: dict,
-                  live: dict, card: str) -> dict:
+                  live: dict, packed: dict, card: str) -> dict:
     """Every kernel form against its plain version on the card at the main
     path's shapes, exact, with its time (CUDA events), its device time
     (``torch.profiler``), the bound for the same work and a PyTorch call
@@ -2088,6 +2574,7 @@ def phase_kernels(device, main_launches: dict, level: dict, sg, topo: dict, chur
                      rep_topo)
     wide_mirror_rows(device, rng, row, check, restored, timed_pair, src_topo, rep_topo)
     block_refresh_rows(device, live, rng, row, check, restored, timed_pair)
+    packed_pull_rows(device, packed, live, row, check, restored, timed_pair)
 
     # device time alone (torch.profiler): tells launch- or host-bound calls
     # from slow kernels, since CUDA events over back-to-back calls also time
@@ -2113,6 +2600,7 @@ def main() -> int:
         return 2
     from stl_fusion_tpu_torch.ops import block_refresh as brf_mod
     from stl_fusion_tpu_torch.ops import or_popcount as opc_mod
+    from stl_fusion_tpu_torch.ops import packed_pull as ppp_mod
     from stl_fusion_tpu_torch.ops import ring_all_gather as rag_mod
     from stl_fusion_tpu_torch.ops import topo_wave as tpw_mod
     from stl_fusion_tpu_torch.ops import wave as wave_mod
@@ -2125,12 +2613,12 @@ def main() -> int:
     cache_dir = tempfile.mkdtemp(prefix="fusion-mirror-cache-")
     os.environ["FUSION_MIRROR_CACHE"] = cache_dir
     try:
-        return _main(torch, device, dev, opc_mod, wave_mod, rag_mod, tpw_mod, brf_mod)
+        return _main(torch, device, dev, opc_mod, wave_mod, rag_mod, tpw_mod, brf_mod, ppp_mod)
     finally:
         shutil.rmtree(cache_dir, ignore_errors=True)
 
 
-def _main(torch, device, dev, opc_mod, wave_mod, rag_mod, tpw_mod, brf_mod) -> int:
+def _main(torch, device, dev, opc_mod, wave_mod, rag_mod, tpw_mod, brf_mod, ppp_mod) -> int:
 
     def counts():
         return {"or_popcount": opc_mod.launches, "wave_expand.all_forms": wave_mod.launches,
@@ -2139,11 +2627,13 @@ def _main(torch, device, dev, opc_mod, wave_mod, rag_mod, tpw_mod, brf_mod) -> i
                 "wave_expand_shards": wave_mod.form_launches["shards"],
                 "ring_all_gather": rag_mod.launches, "ring_cuda_launches": rag_mod.cuda_launches,
                 "topo_sweep": tpw_mod.launches, "lane_finish": tpw_mod.lane_finish_launches,
-                "block_refresh": brf_mod.launches}
+                "block_refresh": brf_mod.launches, "packed_pull": ppp_mod.launches,
+                "packed_pull.early_exits": ppp_mod.early_exits}
 
     def reset():
         opc_mod.launches = wave_mod.launches = rag_mod.launches = rag_mod.cuda_launches = 0
         tpw_mod.launches = tpw_mod.lane_finish_launches = brf_mod.launches = 0
+        ppp_mod.launches = ppp_mod.early_exits = 0
         wave_mod.form_launches.update(dict.fromkeys(wave_mod.form_launches, 0))
 
     def check(path, got, kernels, absent=()):
@@ -2177,6 +2667,8 @@ def _main(torch, device, dev, opc_mod, wave_mod, rag_mod, tpw_mod, brf_mod) -> i
     topo, mirror = drive("mirror", lambda: (phase_mirror(device, dev["nvidia_smi"], pl["level"]),
                                             phase_topo_10m(device, dev["nvidia_smi"]))[1],
                          ("topo_sweep",), absent=("wave_expand.all_forms", "lane_finish"))
+    packed, packedd = drive("packed", lambda: phase_packed_10m(device, dev["nvidia_smi"], topo),
+                            ("packed_pull",), absent=("topo_sweep", "lane_finish"))
     level = pl["level"]
     g, seeds = level["graph"], level["seeds"].tolist()
     calls = level["want_union"][2] + 1  # wave_expand calls per union wave
@@ -2199,9 +2691,10 @@ def _main(torch, device, dev, opc_mod, wave_mod, rag_mod, tpw_mod, brf_mod) -> i
     live_kernels = ("topo_sweep", "lane_finish", "block_refresh")
     lived = check("live", paths["live"], live_kernels)
     live_srd = check("live_sr", paths["live_sr"], live_kernels)
-    main_launches = {name: dense[name] + sharded[name] + mirror[name] + churned[name]
-                     + lived[name] + live_srd[name] for name in dense}
-    kernels = phase_kernels(device, main_launches, level, sg, topo, churn, live,
+    meshd = check("mesh_lanes", paths["mesh_lanes"], ("packed_pull", "lane_finish"))
+    main_launches = {name: sum(p[name] for p in (dense, sharded, mirror, packedd, churned, lived,
+                                                 live_srd, meshd)) for name in dense}
+    kernels = phase_kernels(device, main_launches, level, sg, topo, churn, live, packed,
                             dev["nvidia_smi"])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")

@@ -4,7 +4,8 @@ It carries the cascading-invalidation wave end to end on an NVIDIA H100:
 the computed-graph runtime (``core``), the device graph mirror, its topo
 and lat mirrors and its backend (``graph``), the dense bit-packed BFS wave,
 the topo sweep and the lone-wave lat programs (``ops``), the one-card mesh
-(``parallel``) and the twin of ``bench.py``'s single-chip leg (``bench``),
+and its packed mesh wave (``parallel``) and the twin of ``bench.py``'s
+single-chip and mesh legs (``bench``),
 with hand-written Hopper kernels (``csrc/``). Module names and layout
 follow the JAX package so each counterpart is easy to find.
 

@@ -38,8 +38,12 @@ through the table's device loader and the ``block_refresh`` kernel
 rounds of (lane burst → block refresh) as one program (a ticket with
 ``nonblocking=True``), and ``enable_super_rounds`` installs the resident
 super-round program (``graph/superround.py``); on the card both are captured
-CUDA graphs. The packed and routed mesh mirrors and the watchdog are later
-slices of the port and raise ``NotImplementedError``.
+CUDA graphs. The packed mesh mirror (``packed_mirror``,
+``invalidate_cascade_batch_lanes_sharded``, ``cascade_rows_lanes_sharded``)
+runs lane bursts on a mesh through the packed pull wave
+(``parallel/packed_wave.py``), patched in place under structural churn.
+The routed mesh mirror and the watchdog are later slices of the port and
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -300,6 +304,7 @@ class TpuGraphBackend:
         self.watchdog = None
         self._routed_mirror = None  # the routed mesh mirror (ROADMAP A.9)
         self._sharded_mirror: Optional[dict] = None  # see sharded_mirror
+        self._packed_mirror: Optional[dict] = None  # see packed_mirror
         self.waves_run = 0
         self.device_invalidations = 0
         #: fired on every wave application with the newly-invalid set as the
@@ -1166,9 +1171,6 @@ class TpuGraphBackend:
     def attach_watchdog(self, *args, **kwargs):
         _not_ported("attach_watchdog", "A.8 (diagnostics and resilience)")
 
-    def packed_mirror(self, *args, **kwargs):
-        _not_ported("packed_mirror", "A.9 after A.4 (packed mesh waves need the ELL and pull waves)")
-
     def enable_mesh_routing(self, *args, **kwargs):
         _not_ported("enable_mesh_routing", "A.9 (routed mesh waves and the cluster shard map)")
 
@@ -1308,6 +1310,189 @@ class TpuGraphBackend:
         self.device_invalidations += count
         self._profile_wave("sharded_union", len(seeds), cause, t0, t1, len(newly_ids), wave_seq)
         return count
+
+    # ------------------------------------------------------------------ packed mesh mirror
+    def packed_mirror(self, mesh=None) -> dict:
+        """Packed mesh mirror of the LIVE edge set — the mesh lane-burst
+        bridge (``PackedShardedGraph`` over the currently live, epoch-matched
+        edges, ``PATCH_SLACK`` free slots a row, and a device-resident
+        blocked mask mirroring the invalid state). Structural churn PATCHES
+        the mesh tables in place from the graph's ordered delta stream:
+        bumps scatter the mesh's rebased epochs (the pull wave has no level
+        order, so no violations exist), adds splice into slack slots; only
+        slot overflow, unknown nodes, or a broken log rebuild. The blocked
+        mask re-syncs from the dense state only after host-led
+        invalid-state changes (the ``invalid_version`` protocol of the union
+        bridge). ``mesh`` defaults to one shard on the backend's device."""
+        from ..parallel import PackedShardedGraph
+
+        self.flush()
+        dg = self.graph
+        sv = dg._struct_version
+        cached = self._packed_mirror
+        if cached is not None:
+            cached_ref = cached["mesh_ref"]
+            same_mesh = (
+                cached_ref is None if mesh is None
+                else cached_ref is not None and cached_ref() is mesh
+            )
+            if same_mesh:
+                if cached["validated_at"] == sv:
+                    return cached
+                aux = cached["aux_log"]
+                if not aux["broken"] and self._try_patch_packed(cached, aux):
+                    cached["validated_at"] = sv
+                    return cached
+                if cached["fp"] is not None and check_structure_cache(
+                    cached, sv, lambda: dg._live_edge_fingerprint()[2]
+                ):
+                    return cached
+        if cached is not None:
+            dg.drop_aux_delta_log(cached["aux_log"])
+        src, dst, fp = dg._live_edge_fingerprint()
+        pg = PackedShardedGraph(
+            src, dst, dg.n_nodes, mesh=mesh if mesh is not None else graph_mesh(device=dg.device),
+            slack=dg.PATCH_SLACK,
+        )
+        self._packed_mirror = {
+            "fp": fp,
+            "validated_at": sv,
+            "mesh_ref": weakref.ref(mesh) if mesh is not None else None,
+            "graph": pg,
+            "blocked": pg.put_blocked(),
+            # epochs on the mesh are REBASED to 0 at build; deltas carry
+            # absolute epochs and translate through this base
+            "epoch_base": dg._h_node_epoch[: dg.n_nodes].copy(),
+            "aux_log": dg.register_aux_delta_log(),
+            # absent invalid_version: the next burst full-syncs from dense
+        }
+        return self._packed_mirror
+
+    def _try_patch_packed(self, entry: dict, aux: dict) -> bool:
+        """Replay the recorded structural deltas onto the mesh mirror, the
+        whole stream coalesced into one ``PackedShardedGraph.patch_batch``.
+        The packed mirror's epochs are REBASED to 0 at build, so the
+        coalescer's absolute epochs translate through the build base here.
+        Returns False (and breaks the log) on anything the in-place path
+        cannot absorb — the caller rebuilds."""
+        pg = entry["graph"]
+        base = entry["epoch_base"]
+        coalesced = self._coalesce_mirror_deltas(aux["deltas"], pg.n_nodes)
+        if coalesced is None:
+            aux["broken"] = True  # nodes born after the build
+            return False
+        bumps, u, v, ep = coalesced
+        if not len(bumps) and not len(u):
+            aux["deltas"] = []
+            return True
+        # the first in-place mutation invalidates the BUILD fingerprint for
+        # good: a later failed replay must never let the fingerprint path
+        # revalidate half-patched tables
+        entry["fp"] = None
+        if not pg.patch_batch(bumps, u, v, ep - base[v]):
+            aux["broken"] = True  # slot overflow / unknown nodes
+            return False
+        aux["deltas"] = []
+        global_metrics().counter(
+            "fusion_mirror_patch_batches_total",
+            help="structural churn bursts applied to the packed mesh mirror in one patch batch",
+        ).inc()
+        return True
+
+    @staticmethod
+    def _coalesce_mirror_deltas(deltas, n: int):
+        """Collect a recorded structural-delta stream into concatenated
+        ``(bumps, u, v, ep_abs)`` for one patch batch. Coalescing is
+        final-state-safe: bumps are epoch increments and adds carry their
+        captured epochs, so the result is order-independent; bump payloads
+        arrive unique (``bump_epochs`` dedups before recording), so plain
+        concatenation keeps the sequential replay's semantics. Returns None
+        when an add references nodes born after the mirror's build (the
+        rebuild signal)."""
+        bumps: List[np.ndarray] = []
+        us: List[np.ndarray] = []
+        vs: List[np.ndarray] = []
+        eps: List[np.ndarray] = []
+        for kind, payload in deltas:
+            if kind == "bump":
+                ids = np.asarray(payload, dtype=np.int64)
+                ids = ids[ids < n]
+                if ids.size:
+                    bumps.append(ids)
+            else:
+                u, v, ep = payload
+                u64 = np.asarray(u, dtype=np.int64)
+                v64 = np.asarray(v, dtype=np.int64)
+                if u64.size and (int(u64.max()) >= n or int(v64.max()) >= n):
+                    return None
+                us.append(u64)
+                vs.append(v64)
+                eps.append(np.asarray(ep, dtype=np.int64))
+
+        def cat(parts):
+            return np.concatenate(parts) if parts else np.empty(0, np.int64)
+
+        return cat(bumps), cat(us), cat(vs), cat(eps)
+
+    def invalidate_cascade_batch_lanes_sharded(
+        self, groups: Sequence[Sequence["Computed"]], mesh=None
+    ) -> np.ndarray:
+        """Lane-packed live burst ON THE MESH: each command group cascades
+        independently in its own bit lane over the mesh (the packed pull
+        wave, ``parallel/packed_wave.py``), gated by the live graph's
+        invalid state, with the union applied back to the hub exactly like
+        the single-device lane path. The blocked mask stays device-resident
+        between bursts (the ``invalid_version`` protocol, exception-safe: the
+        entry reads out of sync until the dense apply completes). Returns
+        per-group newly counts (a computed not in the graph falls back to an
+        immediate host invalidation, counting 1)."""
+        seed_lists: List[List[int]] = []
+        fallback = np.zeros(len(groups), dtype=np.int64)
+        for gi, group in enumerate(groups):
+            ids: List[int] = []
+            for c in group:
+                nid = self._id_by_input.get(c.input)
+                if nid is None:
+                    c.invalidate(immediately=True)
+                    fallback[gi] += 1
+                else:
+                    ids.append(nid)
+            seed_lists.append(ids)
+        return self._lanes_sharded_nids(seed_lists, mesh) + fallback
+
+    def cascade_rows_lanes_sharded(self, block: RowBlock, row_groups, mesh=None) -> np.ndarray:
+        """:meth:`cascade_rows_lanes` ON THE MESH: each row group cascades
+        independently in its own bit lane over the mesh, the union applied
+        back to the hub and tables like the single-device path."""
+        seed_lists = [(block.base + self._check_rows(block, g)).tolist() for g in row_groups]
+        return self._lanes_sharded_nids(seed_lists, mesh)
+
+    def _lanes_sharded_nids(self, seed_lists: List[List[int]], mesh=None) -> np.ndarray:
+        entry = self.packed_mirror(mesh=mesh)
+        pg = entry["graph"]
+        dg = self.graph
+        if entry.get("invalid_version") != dg.invalid_version:
+            mask = dg.invalid_mask()
+            dg._h_invalid[: dg.n_nodes] = mask
+            entry["blocked"] = pg.put_blocked(mask)
+        entry.pop("invalid_version", None)  # out of sync until the apply completes
+        cause, wave_seq = self._begin_wave()
+        t0 = time.perf_counter()
+        # cap=0: no union ids are compacted; the union is what the burst
+        # added to the blocked words, applied as a mask
+        counts, _, blocked2, _ = pg.run_gated_lanes(seed_lists, entry["blocked"], cap=0)
+        t1 = time.perf_counter()
+        newly = dg.mark_invalid_words(blocked2 & ~entry["blocked"])
+        entry["blocked"] = blocked2
+        entry["invalid_version"] = dg.invalid_version
+        self._apply_newly(newly)
+        self.waves_run += len(seed_lists)
+        self.device_invalidations += int(counts.sum())
+        self._profile_wave(
+            "sharded_lanes", sum(len(s) for s in seed_lists), cause, t0, t1,
+            int(counts.sum()), wave_seq, groups=len(seed_lists),
+        )
+        return counts
 
     # ------------------------------------------------------------------ lookup
     def computed_for(self, node_id: int):

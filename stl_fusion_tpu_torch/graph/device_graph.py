@@ -350,6 +350,22 @@ class DeviceGraph:
         self.invalid_version += 1
         self._device_invalid_update(node_ids, True)
 
+    def mark_invalid_words(self, words: torch.Tensor) -> np.ndarray:
+        """Mask form of :meth:`mark_invalid`: ``words`` packs the newly
+        invalid nodes (bit ``i % 32`` of word ``i // 32``, the layout of the
+        device words). The words are OR'ed in on the device, and the host
+        mirror from one readback. Returns the mask as bool[n_nodes]."""
+        mask = unpack_words_host(words.cpu().numpy(), self.n_nodes)
+        if not mask.any():
+            return mask
+        self._h_invalid[: self.n_nodes] |= mask
+        self.invalid_version += 1
+        if self._g is not None and not self._dirty:
+            inv = self._g.invalid
+            k = min(inv.shape[0], words.shape[0])
+            inv[:k] |= words[:k].to(inv.device)
+        return mask
+
     def clear_invalid_ids(self, node_ids: np.ndarray) -> None:
         """Refreshed rows are consistent again WITHOUT an epoch bump."""
         node_ids = np.asarray(node_ids, dtype=np.int32)

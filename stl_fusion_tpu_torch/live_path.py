@@ -34,7 +34,11 @@ churn (journal only) while the previous one runs, harvests it (the fence
 drain), flushes, refreshes and dispatches: one program per super-round, on
 the card one CUDA graph replay. The chain loop dispatches
 ``cascade_rows_lanes_refresh_chain(nonblocking=True)`` in the same cadence.
-``loops`` runs several loops one after another on one built stack.
+``loops`` runs several loops one after another on one built stack. A
+blocking loop may name its burst (the port's own option, not
+``perf/live_path.py``'s): ``("blocking", rounds, burst)`` calls
+``burst(backend, block, group_ids)`` in place of ``cascade_rows_lanes``,
+for example ``cascade_rows_lanes_sharded`` on a mesh.
 
 Defaults are ``perf/live_path.py``'s (``LIVE_DEG=3``, ``LIVE_ROUNDS=6``,
 ``LIVE_LANE_GROUPS=512``, ``LIVE_LANE_SEEDS=8``, ``LIVE_EDGE_CHURN=2000``,
@@ -59,7 +63,7 @@ from __future__ import annotations
 
 import asyncio
 import time
-from typing import Any, Callable, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -157,7 +161,7 @@ def run_live(n_nodes: int = N_NODES, deg: float = 3, rounds: int = 6, lane_group
              lane_seeds: int = 8, edge_churn: int = 2000, scalar_churn: int = 4,
              lat_waves: int = 32, edges=None, device=None, api: Optional[LiveApi] = None,
              observer=None, nonblocking: bool = True, super_rounds: bool = True,
-             fuse_depth: int = 3, loops: Optional[Sequence[Tuple[str, int]]] = None) -> dict:
+             fuse_depth: int = 3, loops: Optional[Sequence[tuple]] = None) -> dict:
     """Build the live stack once, run its loop and return the record.
     ``nonblocking`` and ``super_rounds`` (``LIVE_NONBLOCKING``,
     ``LIVE_SUPER_ROUNDS``, both on by default as in ``perf/live_path.py``)
@@ -166,7 +170,9 @@ def run_live(n_nodes: int = N_NODES, deg: float = 3, rounds: int = 6, lane_group
     super-round, capped at ``rounds``. ``loops``, a list of ``(mode,
     rounds)`` with modes from :data:`MODES`, runs several loops one after
     another on the same stack instead; the record then holds the first
-    loop's keys and ``loops``, one record per loop. ``edges`` (src, dst)
+    loop's keys and ``loops``, one record per loop. A blocking loop may be
+    ``("blocking", rounds, burst)``: its bursts are ``burst(backend, block,
+    group_ids)``, which returns the per-group counts. ``edges`` (src, dst)
     replaces the generated ``power_law_dag(n_nodes, deg, 7)``.
 
     ``observer`` methods, each optional, are called with a context dict
@@ -186,9 +192,11 @@ def run_live(n_nodes: int = N_NODES, deg: float = 3, rounds: int = 6, lane_group
     if loops is None:
         mode = "blocking" if not nonblocking else "superround" if super_rounds else "chain"
         loops = [(mode, rounds)]
-    for mode, _ in loops:
+    for mode, _, *burst in loops:
         if mode not in MODES:
             raise ValueError(f"unknown live loop {mode!r}; modes are {MODES}")
+        if burst and mode != "blocking":
+            raise ValueError(f"only a blocking loop takes a burst, not {mode!r}")
     return asyncio.run(_run(api, n_nodes, deg, lane_groups, lane_seeds, edge_churn,
                             scalar_churn, lat_waves, edges, observer, fuse_depth, list(loops)))
 
@@ -208,7 +216,7 @@ async def _run(api: LiveApi, n, deg, lane_groups, lane_seeds, edge_churn, scalar
     src, dst = edges if edges is not None else power_law_dag(n, avg_degree=deg,
                                                              seed=GRAPH_SEED)
     # every loop's rounds and warm super-rounds churn (and recompute rows)
-    n_rounds = sum(r + sum(_warm_depths(mode, r, fuse_depth)) for mode, r in loops)
+    n_rounds = sum(r + sum(_warm_depths(mode, r, fuse_depth)) for mode, r, *_ in loops)
     hub = core.FusionHub()
     old = core.set_default_hub(hub)
     try:
@@ -357,10 +365,11 @@ async def _run(api: LiveApi, n, deg, lane_groups, lane_seeds, edge_churn, scalar
             return rows, declared
 
         loop_records = []
-        for mode, rounds in loops:
+        for mode, rounds, *burst in loops:
             _notify(observer, "begin_loop", ctx, mode, rounds)
             if mode == "blocking":
-                rec = await _loop_blocking(ctx, rounds, prep_churn, maintain, group_ids, observer)
+                rec = await _loop_blocking(ctx, rounds, prep_churn, maintain, group_ids, observer,
+                                           *burst)
             else:
                 rec = await _loop_nonblocking(ctx, mode, rounds, fuse_depth, prep_churn, maintain,
                                               group_ids, observer)
@@ -402,9 +411,15 @@ async def _run(api: LiveApi, n, deg, lane_groups, lane_seeds, edge_churn, scalar
         core.set_default_hub(old)
 
 
-async def _loop_blocking(ctx, rounds, prep_churn, maintain, group_ids, observer) -> dict:
+def _lanes_burst(backend, block, group_ids):
+    return backend.cascade_rows_lanes(block, group_ids)
+
+
+async def _loop_blocking(ctx, rounds, prep_churn, maintain, group_ids, observer,
+                         burst=_lanes_burst) -> dict:
     """``perf/live_path.py``'s blocking loop: per round the churn, ``flush``,
-    ``refresh_block_on_device`` and one ``cascade_rows_lanes`` burst."""
+    ``refresh_block_on_device`` and one burst, ``cascade_rows_lanes`` unless
+    the loop names its own ``burst(backend, block, group_ids)``."""
     backend, block, gdev, sync = ctx["backend"], ctx["block"], ctx["backend"].graph, ctx["sync"]
     phases = {"declare_s": 0.0, "scalar_s": 0.0, "churn_edges": 0}
     per_round = []
@@ -431,7 +446,7 @@ async def _loop_blocking(ctx, rounds, prep_churn, maintain, group_ids, observer)
         observer_s += _notify(observer, "after_refresh", ctx, rnd, refreshed, invalid_before)
         bursts0 = gdev.mirror_bursts
         t0 = time.perf_counter()
-        counts = backend.cascade_rows_lanes(block, group_ids)
+        counts = burst(backend, block, group_ids)
         bt = time.perf_counter() - t0
         burst_s += bt
         total_inv += int(counts.sum())

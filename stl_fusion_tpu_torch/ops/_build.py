@@ -62,6 +62,10 @@ KERNELS: Dict[str, tuple] = {
     "block_refresh": ("block_refresh.cu", {
         "block_refresh_launch": [_P, _P, _P, _P, _LL, _LL, _LL, _I, _P],
     }),
+    "packed_pull": ("packed_pull.cu", {
+        "packed_pull_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _LL, _I, _I,
+                               _I, _P],
+    }),
 }
 
 #: host library → (source file, {C entry: (argument types, result type)})

@@ -144,8 +144,11 @@ def test_backend_later_slices_raise():
     assert backend.super_rounds is None and not backend.mesh_routing_active()
     with pytest.raises(NotImplementedError, match="A.8"):
         backend.attach_watchdog(None)
-    with pytest.raises(NotImplementedError, match="A.9"):
-        backend.packed_mirror()
+    # the packed mesh mirror (A.9's first part) is ported: one shard on the
+    # backend's device by default
+    entry = backend.packed_mirror()
+    assert entry["graph"].mesh.size == 1 and entry["graph"].in_src.device.type == "cpu"
+    assert backend.packed_mirror() is entry
     with pytest.raises(NotImplementedError, match="A.9"):
         backend.enable_mesh_routing()
     assert pgraph.GraphBackend is pgraph.TpuGraphBackend

@@ -17,7 +17,7 @@ from stl_fusion_tpu_torch.ops import or_popcount as opc
 from stl_fusion_tpu_torch.ops import ring_all_gather as rag
 from stl_fusion_tpu_torch.ops import wave as tw
 from stl_fusion_tpu_torch.ops.bitops import pack_bits
-from stl_fusion_tpu_torch.parallel import ShardedDeviceGraph, graph_mesh
+from stl_fusion_tpu_torch.parallel import PackedShardedGraph, ShardedDeviceGraph, graph_mesh
 
 pytestmark = pytest.mark.gpu
 
@@ -691,3 +691,140 @@ def test_superround_clean_path_has_no_eager_rounds(card):
     st = prog.stats()
     assert st["eager_rounds"] == 0 and st["faults"] == 0 and st["uncaptured"] == 0, st
     assert st["replays"] == 4
+
+
+# ------------------------------------------------------------------ packed_pull
+def _pull_inputs(card, words, k, seed, n=6000):
+    """A random in-slot table of ``k`` slots (live, dead and pad slots; the
+    null row ``n - 1``), epochs, real rows, a sparse frontier with the
+    sign-bit lane set, and an invalid state, on the card."""
+    rng = np.random.default_rng(seed)
+    in_src = rng.integers(0, n, size=(n, k)).astype(np.int32)
+    node_epoch = rng.integers(0, 3, size=n).astype(np.int32)
+    node_epoch[n - 1] = -2
+    edge_epoch = np.where(rng.random((n, k)) < 0.6, node_epoch[:, None],
+                          node_epoch[:, None] + 1).astype(np.int32)
+    pad = rng.random((n, k)) < 0.2
+    in_src[pad], edge_epoch[pad] = n - 1, -1
+    is_real = rng.random(n) < 0.9
+    frontier = rng.integers(-(2**31), 2**31, size=(n, words), dtype=np.int64).astype(np.int32)
+    frontier[rng.random(n) < 0.8] = 0
+    frontier[rng.random(n) < 0.05, words - 1] |= np.int32(-(2**31))
+    invalid = rng.integers(-(2**31), 2**31, size=(n, words), dtype=np.int64).astype(np.int32)
+    invalid[rng.random(n) < 0.6] = 0
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(card)  # noqa: E731
+    return [t(a) for a in (in_src, edge_epoch, node_epoch, is_real, frontier, invalid)]
+
+
+@pytest.mark.parametrize("words", [1, 3, 16, 32])
+@pytest.mark.parametrize("k", [8, 10, 17])
+def test_packed_pull_kernel_matches_plain(card, words, k):
+    """One level and one seed step, each with and without ``count_all``:
+    next, invalid, counts and the flag equal the plain version's, the null
+    row's fire 0; with the incoming flag at 0 the launch changes nothing."""
+    from stl_fusion_tpu_torch.ops import packed_pull as ppp
+
+    in_src, edge_epoch, node_epoch, is_real, frontier, invalid = _pull_inputs(
+        card, words, k, 100 * words + k)
+    n = invalid.shape[0]
+    for gather, count_all in ((True, False), (True, True), (False, False), (False, True)):
+        outs = []
+        for fn in (ppp.packed_pull_plain, ppp.packed_pull):
+            inv, nxt = invalid.clone(), torch.full_like(invalid, 7)
+            counts = torch.zeros(words, dtype=torch.int32, device=card)
+            flags = torch.tensor([1, 0], dtype=torch.int32, device=card)
+            before = ppp.launches
+            fn(in_src, edge_epoch, node_epoch, is_real, frontier, nxt, inv, counts, gather=gather,
+               flag_in=flags[:1], flag_out=flags[1:], null_row=n - 1, count_all=count_all)
+            torch.cuda.synchronize()
+            if fn is ppp.packed_pull:
+                assert ppp.launches == before + 1
+            outs.append((inv, nxt, counts, flags))
+        for a, b in zip(*outs):
+            assert torch.equal(a, b), (gather, count_all)
+        inv, nxt, counts, flags = outs[1]
+        assert int(flags[1]) == 1 and int(counts.sum()) > 0
+        if gather:
+            assert int(nxt[n - 1].abs().sum()) == 0
+    # the early exit: nothing is read or written when the flag is 0
+    inv, nxt = invalid.clone(), torch.full_like(invalid, 7)
+    counts = torch.zeros(words, dtype=torch.int32, device=card)
+    flags = torch.zeros(2, dtype=torch.int32, device=card)
+    ppp.packed_pull(in_src, edge_epoch, node_epoch, is_real, frontier, nxt, inv, counts,
+                    flag_in=flags[:1], flag_out=flags[1:])
+    torch.cuda.synchronize()
+    assert torch.equal(inv, invalid) and int((nxt != 7).sum()) == 0
+    assert int(counts.abs().sum()) == 0 and int(flags[1]) == 0
+
+
+@pytest.mark.parametrize("group", [1, 3, 8])
+def test_packed_wave_on_card_matches_cpu(card, group, monkeypatch):
+    """Whole packed waves on the card (W = 16, levels in groups of 1, 3 and
+    8 — the default — and their early exits) equal the CPU port: words,
+    counts and levels."""
+    from stl_fusion_tpu_torch.ops import packed_pull as ppp
+
+    monkeypatch.setattr(ppp, "GROUP", group)
+
+    n = 20_000
+    src, dst = power_law_dag(n, avg_degree=3, seed=4)
+    rng = np.random.default_rng(4)
+    lists = [rng.choice(n, size=30, replace=False) for _ in range(512)]
+    res = {}
+    for dev in ("cpu", card):
+        pg = PackedShardedGraph(src, dst, n, mesh=graph_mesh(8, device=dev), words=16)
+        seeds = pg.prepare_seeds(lists)
+        counts = torch.zeros(16, dtype=torch.int32, device=pg.invalid.device)
+        stats = {}
+        levels = ppp.run_pull_wave(pg.in_src, pg.edge_epoch, pg.node_epoch, pg.is_real, seeds,
+                                   pg.invalid, counts, stats=stats)
+        res[str(dev)] = (pg.invalid.cpu(), counts.cpu(), levels, stats)
+    (ci, cc, cl, _), (gi, gc, gl, gs) = res["cpu"], res[str(card)]
+    assert torch.equal(ci, gi) and torch.equal(cc, gc) and cl == gl > 2
+    # the last level run lit nothing; the launches after it in its group exited
+    assert gs["syncs"] == -(-gl // group) and gs["early_exits"] == gs["syncs"] * group - gl
+
+
+def test_run_gated_lanes_on_card_matches_cpu(card):
+    """The mesh lane burst on the card (``packed_pull`` levels, then
+    ``lane_finish``) equals the CPU port: counts, union ids, blocked mask
+    and overflow, over two chunks from a pre-blocked state."""
+    from stl_fusion_tpu_torch.ops import topo_wave as tpw
+
+    n = 30_000
+    src, dst = power_law_dag(n, avg_degree=3, seed=6)
+    rng = np.random.default_rng(6)
+    groups = [rng.choice(n, size=8, replace=False).tolist() for _ in range(600)]
+    pre = np.zeros(n, bool)
+    pre[rng.choice(n, n // 20, replace=False)] = True
+    res = {}
+    for dev in ("cpu", card):
+        pg = PackedShardedGraph(src, dst, n, mesh=graph_mesh(8, device=dev), slack=2)
+        before = tpw.lane_finish_launches
+        counts, ids, blocked, over = pg.run_gated_lanes(groups, pg.put_blocked(pre))
+        if dev != "cpu":
+            assert tpw.lane_finish_launches == before + 2  # one a chunk
+        res[str(dev)] = (counts, ids, pg.blocked_host(blocked), over)
+    for a, b in zip(res["cpu"], res[str(card)]):
+        assert np.array_equal(a, b)
+    assert res["cpu"][1].size > 0 and not res["cpu"][3]
+
+
+def test_cascade_rows_lanes_sharded_on_card_equals_cascade_rows_lanes(card):
+    """One mesh lane burst on the card's 8 logical shards equals the
+    single-device ``cascade_rows_lanes`` from the same state: per-group
+    counts, the union and the table's stale rows."""
+    results = []
+    for sharded in (True, False):
+        backend, table, block, _ = _sr_stack(card)
+        groups = _sr_bursts(11, 1)[0]
+        if sharded:
+            counts = backend.cascade_rows_lanes_sharded(block, groups, graph_mesh(8, device=card))
+            assert backend._packed_mirror["graph"].in_src.device.type == "cuda"
+        else:
+            counts = backend.cascade_rows_lanes(block, groups)
+        results.append((counts, backend.graph._h_invalid[:SR_N].copy(),
+                        np.asarray(table._stale_host).copy()))
+    for a, b in zip(*results):
+        assert np.array_equal(a, b)
+    assert results[0][0].sum() > 0

@@ -559,8 +559,9 @@ def test_backend_mesh_slices_still_raise():
     block = backend.bind_table_rows(
         MemoTable(4, lambda ids: np.asarray(ids, np.float32), device="cpu"))
     assert backend.cascade_rows_batch_sharded(block, [0]) == 1
-    with pytest.raises(NotImplementedError, match="A.4"):
-        backend.packed_mirror()
+    # the row-block mesh lane burst is ported too (A.9's first part): row 0
+    # is already invalid, so its lane is blocked and counts nothing
+    assert backend.cascade_rows_lanes_sharded(block, [[0], [1]]).tolist() == [0, 1]
     with pytest.raises(NotImplementedError, match="A.9"):
         backend.enable_mesh_routing(None)
     # the default sharded mirror is one shard on the backend's device
