@@ -110,11 +110,17 @@ user calls. Phases, each printing one JSON line:
    sweep at k = 10 in-slots on a ``build_topo_mirror(k=8)`` mirror with
    patched rows past 8 slots); ``lane_finish`` on that burst's bits, and at
    W = 64 (the column-chunked form); ``block_refresh`` at the live shape
-   (and a correctness case at base 37 with int32 rows of 3); ``packed_pull`` at
-   ``packed_10m``'s first and widest levels (W = 16, k = 8), the last mesh
-   burst's first level (k = 10, gated) and the pull leg's first level (W =
-   1, the null row), and ``lane_finish`` at the mesh shape (the identity
-   row map); ``wave_expand`` (pure) and
+   (and a correctness case at base 37 with int32 rows of 3); ``packed_pull``
+   with its fired summaries, as the main path runs it, at ``packed_10m``'s
+   level 0, widest, median and last levels (W = 16, k = 8), the last mesh
+   burst's level 0, median and last levels (k = 10, gated) and the pull
+   leg's level 0 (W = 1, the null row), each with the bound of what its
+   inputs need beside the full-table bound, each also without the
+   summaries and, when ``_smoke_tree/ref/packed_pull.cu`` (a reference
+   source with the entry of the kernel before the fired summary, or
+   ``PACKED_PULL_REF``) is there, that kernel on the same inputs, timed in
+   turns; ``lane_finish`` at the mesh shape (the identity row map);
+   ``wave_expand`` (pure) and
    ``wave_expand_merge`` at the union wave's first and widest levels;
    ``wave_expand_shards`` at the sharded wave's first level; the ring from
    2-D rows (the main path's form) and from a list. Each with its time (CUDA
@@ -2183,46 +2189,103 @@ def wide_mirror_rows(device, rng, row, check, restored, timed_pair, src_topo, re
         union_check={"seeds": len(seeds), "newly": int(c_m)})
 
 
-def pull_levels(tables, seeds, node_epoch, invalid, null_row: int = -1) -> dict:
+def pull_levels(tables, seeds, node_epoch, invalid, null_row: int = -1, keep=()) -> dict:
     """A packed pull wave stepped one kernel launch at a time from ``seeds``
-    over ``invalid`` (updated in place to the wave's end): the first level's
-    and the widest level's inputs (frontier, invalid before), cloned, the
-    rows each level lit, and the levels."""
+    over ``invalid`` (updated in place to the wave's end), as
+    :func:`~stl_fusion_tpu_torch.ops.packed_pull.run_pull_wave` runs it:
+    every launch with the fired summaries. Returns the rows each level lit
+    (the popcount of its summary), the levels, and the inputs (frontier,
+    invalid before, summary in; cloned) of level 0, of the widest level and
+    of each level in ``keep``."""
     import torch
 
     from stl_fusion_tpu_torch.ops import packed_pull as ppp
+    from stl_fusion_tpu_torch.ops.bitops import unpack_bits
 
     in_src, edge_epoch, is_real = tables
+    n = invalid.shape[0]
     counts = torch.zeros(invalid.shape[1], dtype=torch.int32, device=invalid.device)
-    frontier, nxt = torch.empty_like(invalid), torch.empty_like(invalid)
+    frontier, nxt, summary, summary_next = ppp._wave_buffers(invalid)
     ppp.packed_pull(in_src, edge_epoch, node_epoch, is_real, seeds, frontier, invalid, counts,
-                    gather=False)
-    out = {"first": (frontier.clone(), invalid.clone()), "lit": []}
+                    gather=False, summary_out=summary)
+    out = {"lit": [], "kept": {}}
     while True:
-        inv0 = invalid.clone()
+        level = len(out["lit"])
+        inputs = (frontier.clone(), invalid.clone(), summary.clone())
         ppp.packed_pull(in_src, edge_epoch, node_epoch, is_real, frontier, nxt, invalid, counts,
-                        null_row=null_row)
-        lit = int((nxt != 0).any(dim=1).sum())
+                        null_row=null_row, summary_in=summary, summary_out=summary_next)
+        lit = int(unpack_bits(summary_next, n).sum())
+        if level == 0:
+            out["first"] = inputs
         if lit > max(out["lit"], default=-1):
-            out["widest"], out["widest_level"] = (frontier.clone(), inv0), len(out["lit"])
+            out["widest"], out["widest_level"] = inputs, level
+        if level in keep:
+            out["kept"][level] = inputs
+        del inputs
         out["lit"].append(lit)
         if lit == 0:
             return out
         frontier, nxt = nxt, frontier
+        summary, summary_next = summary_next, summary
+
+
+def tail_levels(lit) -> dict:
+    """The tail levels of a wave by its rows lit per level: the last level
+    that lights anything, and the level whose count is the median of the
+    non-empty levels' (the lower median)."""
+    nonempty = [lv for lv, n in enumerate(lit) if n]
+    by_count = sorted(nonempty, key=lambda lv: (lit[lv], lv))
+    return {"median": by_count[(len(by_count) - 1) // 2], "last": nonempty[-1]}
+
+
+#: a reference packed_pull source for the in-call A/B, with the C entry of
+#: the kernel before the fired summary (``git show`` it there before a card
+#: run: the card's copy of the repo has no .git)
+REF_PACKED_PULL = os.environ.get("PACKED_PULL_REF", "_smoke_tree/ref/packed_pull.cu")
+
+
+def load_reference_packed_pull():
+    """The reference ``packed_pull_launch`` (every row read and written, no
+    summary), built with the port's flags, or None when its source is not
+    in the checkout."""
+    import ctypes
+
+    from stl_fusion_tpu_torch.ops import _build
+
+    if not os.path.exists(REF_PACKED_PULL):
+        return None
+    out = str(_build.BUILD_DIR / "ref_packed_pull.so")
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", out, REF_PACKED_PULL],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed for {REF_PACKED_PULL}:\n{proc.stdout}{proc.stderr}")
+    fn = ctypes.CDLL(out).packed_pull_launch
+    P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    fn.argtypes, fn.restype = [P] * 10 + [LL, I, I, LL, I, I, I, P], ctypes.c_int
+    emit({"phase": "kernels_reference", "source": REF_PACKED_PULL,
+          **_build._ptxas_stats(proc.stdout + proc.stderr)})
+    return fn
 
 
 def packed_pull_rows(device, packed, live, row, check, restored, timed_pair) -> None:
     """``phase_kernels``' rows of ``packed_pull`` (each one level launch over
-    all rows, against its plain version from the same inputs, exact: next,
-    invalid, counts and the flag): ``packed_10m``'s first and widest levels
-    (W = 16, k = 8), the last mesh lane burst's first level (k = 8 + 2
-    slack, gated) and the pull leg's first level (W = 1, the null row); and
-    ``lane_finish`` at the mesh shape (that burst's final bits, the identity
-    row map, its pre-burst blocked words)."""
+    all rows with the fired summaries, as the main path runs it, against
+    its plain version from the same inputs, exact: next, invalid, counts,
+    the flag and the summary out; garbage in every frontier row whose bit is
+    clear): ``packed_10m``'s level 0, widest, median and last levels (W =
+    16, k = 8), the last mesh lane burst's level 0, median and last levels
+    (k = 8 + 2 slack, gated) and the pull leg's level 0 (W = 1, the null
+    row); each also without the summaries (every row read and written,
+    exact against its plain version) and, when its source is in the
+    checkout, the reference kernel on the same inputs, timed in turns
+    (reference, this, this, reference); and ``lane_finish`` at the mesh shape (that burst's final
+    bits, the identity row map, its pre-burst blocked words)."""
     import torch
 
     from stl_fusion_tpu_torch.ops import packed_pull as ppp
     from stl_fusion_tpu_torch.ops import topo_wave as tpw
+    from stl_fusion_tpu_torch.ops.bitops import unpack_bits
     from stl_fusion_tpu_torch.ops.pull_wave import pack_lane_matrix
     from stl_fusion_tpu_torch.parallel.packed_wave import _gated_inputs
 
@@ -2231,52 +2294,144 @@ def packed_pull_rows(device, packed, live, row, check, restored, timed_pair) -> 
               "build_packed_sharded_wave; no Pallas kernel)")
     rep_pull = ("stl_fusion_tpu/ops/pull_wave.py:159 (XLA level of _pull_wave32_impl; "
                 "no Pallas kernel)")
+    ref = load_reference_packed_pull()
+    stream = torch.cuda.current_stream().cuda_stream if ref is not None else None
 
-    def level_row(name, replaces, tables, node_epoch, frontier, inv0, null_row, shape):
+    def level_row(name, replaces, tables, node_epoch, inputs, null_row, shape):
         in_src, edge_epoch, is_real = tables
+        frontier, inv0, summary = inputs
         rows, w = inv0.shape
         k = in_src.shape[1]
-        state = {}
-        for which in ("kernel", "plain"):
-            state[which] = (inv0.clone(), torch.empty_like(inv0),
-                            torch.zeros(w, dtype=torch.int32, device=device),
-                            torch.zeros(1, dtype=torch.int32, device=device))
-        zero_c, zero_f = torch.zeros(w, dtype=torch.int32, device=device), torch.zeros(
-            1, dtype=torch.int32, device=device)
-        calls = {}
-        for which, fn in (("kernel", ppp.packed_pull), ("plain", ppp.packed_pull_plain)):
-            inv, nxt, counts, flag = state[which]
+        lit_in = unpack_bits(summary, rows)
+        zeroed = torch.where(lit_in[:, None], frontier, 0)  # the frontier as it reads
+        fill = torch.full_like(inv0, 0x5A5A5A5A)
+        forms = {"kernel": (ppp.packed_pull, True), "plain": (ppp.packed_pull_plain, True),
+                 "full": (ppp.packed_pull, False), "full_plain": (ppp.packed_pull_plain, False)}
+        state, runs = {}, {}
 
-            def one(fn=fn, inv=inv, nxt=nxt, counts=counts, flag=flag):
-                fn(in_src, edge_epoch, node_epoch, is_real, frontier, nxt, inv, counts,
-                   flag_out=flag, null_row=null_row)
-            calls[which] = restored([(inv, inv0), (counts, zero_c), (flag, zero_f)], one)
-        calls["kernel"][0]()
-        calls["plain"][0]()
+        def launcher(which):
+            inv, nxt, counts, flag, s_out = state[which] = (
+                inv0.clone(), fill.clone(), torch.zeros(w, dtype=torch.int32, device=device),
+                torch.zeros(1, dtype=torch.int32, device=device), torch.zeros_like(summary))
+            if which == "reference":  # every row read and written, no summary
+                vec4 = int(w % 4 == 0)
+
+                def run():
+                    err = ref(in_src.data_ptr(), edge_epoch.data_ptr(), node_epoch.data_ptr(),
+                              is_real.data_ptr(), zeroed.data_ptr(), nxt.data_ptr(),
+                              inv.data_ptr(), counts.data_ptr(), None, flag.data_ptr(), rows, k,
+                              w, null_row, 1, 0, vec4, stream)
+                    if err:
+                        raise RuntimeError(f"the reference packed_pull failed with CUDA error {err}")
+                return run
+            fn, gated = forms[which]
+            if gated:
+                return lambda: fn(in_src, edge_epoch, node_epoch, is_real, frontier, nxt, inv,
+                                  counts, flag_out=flag, null_row=null_row, summary_in=summary,
+                                  summary_out=s_out)
+            return lambda: fn(in_src, edge_epoch, node_epoch, is_real, zeroed, nxt, inv, counts,
+                              flag_out=flag, null_row=null_row)
+
+        for which in (*forms, *(("reference",) if ref is not None else ())):
+            runs[which] = launcher(which)
+            runs[which]()
         e = check(name, state["kernel"], state["plain"])
-        nxt = state["kernel"][1]
-        lit = int((nxt != 0).any(dim=1).sum())
-        live_slots = int((edge_epoch == node_epoch[:, None]).sum())
+        for which in ("full", "reference"):
+            if which in state:
+                e = max(e, check(f"{name} ({which})", state[which][:4], state["full_plain"][:4]))
+        fired = unpack_bits(state["kernel"][4], rows)
+        if not torch.equal(state["kernel"][0], state["full"][0]) or not torch.equal(
+                torch.where(fired[:, None], state["kernel"][1], 0), state["full"][1]):
+            raise AssertionError(f"{name}: the summary's level differs from the full one")
+        # each timed call restores only the rows the level changes (those
+        # that fire) and the count and flag: a tail level takes ~0.1 ms, and
+        # a whole-table restore's spread would swamp it
+        idx = torch.nonzero(fired).flatten()
+        rows0 = inv0[idx]
+
+        def timed(which):
+            inv, _, counts, flag, _ = state[which]
+
+            def restore():
+                inv.index_copy_(0, idx, rows0)
+                torch._foreach_zero_([counts, flag])
+
+            def call():
+                restore()
+                runs[which]()
+            return call, restore
+        calls = {which: timed(which) for which in runs}
+        restore_ms = time_ms(calls["kernel"][1], device)
+        extra = {}
+        if ref is not None:  # in turns, on the same inputs
+            order = ("reference", "kernel", "kernel", "reference")
+            laps = [time_ms(calls[which][0], device) - restore_ms for which in order]
+            extra = {"reference_ms": (laps[0] + laps[3]) / 2, "ab_ms": (laps[1] + laps[2]) / 2,
+                     "ab_order": list(order), "ab_laps_ms": laps}
+        full_ms = time_ms(calls["full"][0], device) - restore_ms
         ms, plain_ms, with_ms, restore_ms = timed_pair(calls["kernel"][0], calls["kernel"][1],
                                                        calls["plain"][0], plain_reps=3)
-        row(name, "packed_pull", src_pp, replaces, e, ms, plain_ms,
-            rows * (8 * k + 5 + 12 * w) + lit * 4 * w, (live_slots + 4 * rows) * w, None,
-            call=calls["kernel"][0], shape=f"{rows} rows x int32[{w}], k={k}; {shape}",
-            ms_with_restore=with_ms, restore_ms=restore_ms, lit_rows=lit,
-            live_slots=live_slots, gathered_bytes=live_slots * 4 * w,
-            newly=int(state["kernel"][2].long().sum()))
+        # what these inputs need, each input byte read once: every row's
+        # slot ids and both summaries; for each slot whose source fired its
+        # epoch, for each row with one its node_epoch; for each row with a
+        # live fired slot its invalid words; each frontier row such a slot
+        # names; for each row that fires its invalid and next words and
+        # is_real
+        src = in_src.long()
+        hot = lit_in[src.clamp(0, rows - 1)] & (src >= 0) & (src < rows)
+        if null_row >= 0:
+            hot[null_row] = False
+        live = hot & (edge_epoch == node_epoch[:, None])
+        fired_slots, hot_rows = int(hot.sum()), int(hot.any(dim=1).sum())
+        gathered, cand_rows = int(live.sum()), int(live.any(dim=1).sum())
+        named = torch.zeros(rows, dtype=torch.bool, device=device)
+        named[src[live]] = True
+        sources = int(named.sum())
+        del src, hot, live, named
+        lit = int(idx.numel())
+        need = (rows * 4 * k + 2 * 4 * summary.shape[0] + 4 * fired_slots + 4 * hot_rows
+                + cand_rows * 4 * w + sources * 4 * w + lit * (8 * w + 1))
+        full_bytes = rows * (8 * k + 5 + 12 * w) + lit * 4 * w
+        live_slots = int((edge_epoch == node_epoch[:, None]).sum())
+        # device time now: a deferred profile would keep every row's
+        # tensors (GBs at 10M rows) alive until the phase's end
+        row(name, "packed_pull", src_pp, replaces, e, ms, plain_ms, need,
+            rows * k + (gathered + 4 * cand_rows) * w, None,
+            **profiled(device, calls["kernel"][0], "packed_pull", name),
+            shape=f"{rows} rows x int32[{w}], k={k}; {shape}",
+            full_table_bound_ms=bound_ms(full_bytes, (live_slots + 4 * rows) * w)[0],
+            full_table_bytes=full_bytes, needed_bytes=need, without_summary_ms=full_ms,
+            ms_with_restore=with_ms, restore_ms=restore_ms, lit_rows_in=int(lit_in.sum()),
+            lit_rows=lit, fired_slots=fired_slots, gathered_slots=gathered,
+            gathered_rows=sources, gathering_rows=cand_rows, live_slots=live_slots,
+            newly=int(state["kernel"][2].long().sum()), **extra)
+
+    def wave_rows(names, replaces, tables, node_epoch, seeds, inv, null_row, what):
+        """Rows of the wave from ``seeds`` over ``inv`` (left at the wave's
+        end): ``names`` maps "first", "widest", "median" and "last" to row
+        names. The wave is stepped twice when a tail level is asked for:
+        once to find it, then keeping its inputs."""
+        keep = {}
+        if "median" in names or "last" in names:
+            found = pull_levels(tables, seeds, node_epoch, inv.clone(), null_row)
+            keep = tail_levels(found["lit"])
+            del found
+        lv = pull_levels(tables, seeds, node_epoch, inv, null_row, keep=set(keep.values()))
+        where = {"first": 0, "widest": lv["widest_level"], **keep}
+        for which, name in names.items():
+            level = where[which]
+            inputs = lv["kept"].get(level) if which in keep else lv[which]
+            level_row(name, replaces, tables, node_epoch, inputs, null_row,
+                      f"level {level} of {len(lv['lit'])} of {what} "
+                      f"({lv['lit'][level]} rows lit)")
 
     # packed_10m: its batch's wave stepped level by level
     pg, leg = packed["leg"]["graph"], packed["leg"]
     tables = (pg.in_src, pg.edge_epoch, pg.is_real)
-    inv = torch.zeros_like(pg.invalid)
-    lv = pull_levels(tables, leg["seeds_dev"][0], pg.node_epoch, inv)
-    level_row("packed_pull", rep_pp, tables, pg.node_epoch, *lv["first"], -1,
-              f"level 0 of packed_10m's 512 waves ({lv['lit'][0]} rows lit)")
-    wl = lv["widest_level"]
-    level_row("packed_pull (widest level)", rep_pp, tables, pg.node_epoch, *lv["widest"], -1,
-              f"level {wl} of {len(lv['lit'])} ({lv['lit'][wl]} rows lit)")
-    del lv, inv
+    wave_rows({"first": "packed_pull", "widest": "packed_pull (widest level)",
+               "median": "packed_pull (median level)", "last": "packed_pull (last level)"},
+              rep_pp, tables, pg.node_epoch, leg["seeds_dev"][0], torch.zeros_like(pg.invalid),
+              -1, "packed_10m's 512 waves")
 
     # the last mesh lane burst (k = 10) from its pre-burst blocked words
     last = live["mesh_last"]
@@ -2285,11 +2440,11 @@ def packed_pull_rows(device, packed, live, row, check, restored, timed_pair) -> 
     seeds, node_epoch = _gated_inputs(mpg, torch.from_numpy(mat).to(device), blocked, words)
     mtables = (mpg.in_src, mpg.edge_epoch, mpg.is_real)
     minv = torch.zeros_like(seeds)
-    lv = pull_levels(mtables, seeds, node_epoch, minv)
-    level_row("packed_pull (burst level)", rep_pp, mtables, node_epoch, *lv["first"], -1,
-              f"level 0 of mesh_lanes_10m's last burst, {len(last['groups'])} groups, "
-              f"{len(lv['lit'])} levels")
-    del lv, seeds
+    wave_rows({"first": "packed_pull (burst level)",
+               "median": "packed_pull (burst median level)",
+               "last": "packed_pull (burst last level)"}, rep_pp, mtables, node_epoch, seeds,
+              minv, -1, f"mesh_lanes_10m's last burst, {len(last['groups'])} groups")
+    del seeds
 
     # lane_finish at the mesh shape: that burst's final bits
     gk, gp = blocked.clone(), blocked.clone()
@@ -2322,10 +2477,17 @@ def packed_pull_rows(device, packed, live, row, check, restored, timed_pair) -> 
     ga, n_tot = pleg["wave32"].garrays, pleg["graph"].n_tot
     ptables = (ga.in_src, ga.edge_epoch, ga.is_real)
     pinv = torch.zeros(n_tot + 1, 1, dtype=torch.int32, device=device)
-    node_epoch = pleg["state"].node_epoch
-    lv = pull_levels(ptables, pleg["seed_bits"][0].view(-1, 1), node_epoch, pinv, null_row=n_tot)
-    level_row("packed_pull (pull leg)", rep_pull, ptables, node_epoch, *lv["first"], n_tot,
-              f"level 0 of the pull leg's 32 waves, {len(lv['lit'])} levels")
+    wave_rows({"first": "packed_pull (pull leg)"}, rep_pull, ptables, pleg["state"].node_epoch,
+              pleg["seed_bits"][0].view(-1, 1), pinv, n_tot, "the pull leg's 32 waves")
+
+
+def profiled(device, call, form: str, name: str, reps: int = 20, per_call: int = 1) -> dict:
+    """``device_ms`` (``torch.profiler``'s device time of one call of
+    ``form``'s kernel) and ``profiled_launches`` over ``reps`` calls."""
+    form = form.split(".")[0]
+    _, _, _, seen = profile_checked(device, lambda: [call() for _ in range(reps)],
+                                    {form: reps * per_call}, name)
+    return {"device_ms": seen[form][0] * per_call, "profiled_launches": seen[form][1]}
 
 
 def phase_kernels(device, main_launches: dict, level: dict, sg, topo: dict, churn: dict,
@@ -2582,12 +2744,10 @@ def phase_kernels(device, main_launches: dict, level: dict, sg, topo: dict, chur
     # one launch of its form's kernel
     reps = 20
     for r in rows.values():
+        if "device_ms" in r:  # profiled where it was made (its inputs are freed)
+            continue
         call, per_call = r.pop("call"), r.pop("per_call", 1)
-        form = r["form"].split(".")[0]
-        _, _, _, seen = profile_checked(device, lambda: [call() for _ in range(reps)],
-                                        {form: reps * per_call}, r["name"])
-        r["device_ms"] = seen[form][0] * per_call
-        r["profiled_launches"] = seen[form][1]
+        r.update(profiled(device, call, r["form"], r["name"], reps, per_call))
     emit({"phase": "kernels", "card": card, "kernels": list(rows.values())})
     return rows
 

@@ -63,8 +63,8 @@ KERNELS: Dict[str, tuple] = {
         "block_refresh_launch": [_P, _P, _P, _P, _LL, _LL, _LL, _I, _P],
     }),
     "packed_pull": ("packed_pull.cu", {
-        "packed_pull_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _LL, _I, _I,
-                               _I, _P],
+        "packed_pull_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _LL,
+                               _I, _I, _I, _I, _P],
     }),
 }
 

@@ -757,6 +757,100 @@ def test_packed_pull_kernel_matches_plain(card, words, k):
     assert int(counts.abs().sum()) == 0 and int(flags[1]) == 0
 
 
+def _summary_inputs(card, words, k, density, n, seed):
+    """``_pull_inputs``' tables (the null row ``n - 1``) with a frontier
+    whose rows are lit at ``density`` (at least one), random words in every
+    other row (garbage under a clear bit), and the summary of the lit rows."""
+    in_src, edge_epoch, node_epoch, is_real, _, invalid = _pull_inputs(card, words, k, seed, n=n)
+    rng = np.random.default_rng(seed + 1)
+    lit = rng.random(n) < density
+    lit[rng.integers(n)] = True
+    words_ = rng.integers(-(2**31), 2**31, size=(n, words), dtype=np.int64).astype(np.int32)
+    words_[lit, 0] |= 1  # a lit row is non-zero
+    frontier = torch.from_numpy(words_).to(card)
+    return (in_src, edge_epoch, node_epoch, is_real, frontier, invalid,
+            pack_bits(torch.from_numpy(lit).to(card)))
+
+
+@pytest.mark.parametrize("words", [1, 3, 16, 32])
+@pytest.mark.parametrize("k", [8, 10, 17, 40])  # 40: slots past the scan's 32
+@pytest.mark.parametrize("density", [0.001, 0.01, 0.5])
+def test_packed_pull_summary_kernel_matches_plain(card, words, k, density):
+    """The fired summary: a level given the previous level's summary (the
+    frontier's other rows garbage) and writing its own, and the seed step
+    writing the first, each with and without ``count_all``, on 6,001 rows
+    and on 23 (a partial summary word, below 32), the null row last: next
+    (only the rows that fire written), invalid, counts, the flag and the
+    summary equal the plain version's; with the incoming flag at 0 the
+    launch writes neither next nor the summary."""
+    from stl_fusion_tpu_torch.ops import packed_pull as ppp
+
+    for n in (6001, 23):
+        in_src, edge_epoch, node_epoch, is_real, frontier, invalid, summary = _summary_inputs(
+            card, words, k, density, n, 1000 * words + 10 * k + n)
+        n_words = summary.shape[0]
+        for gather, count_all in ((True, False), (True, True), (False, False), (False, True)):
+            outs = []
+            for fn in (ppp.packed_pull_plain, ppp.packed_pull):
+                inv, nxt = invalid.clone(), torch.full_like(invalid, 7)
+                counts = torch.zeros(words, dtype=torch.int32, device=card)
+                flags = torch.tensor([1, 0], dtype=torch.int32, device=card)
+                s_out = torch.full((n_words,), 12345, dtype=torch.int32, device=card)
+                fn(in_src, edge_epoch, node_epoch, is_real, frontier, nxt, inv, counts,
+                   gather=gather, flag_in=flags[:1], flag_out=flags[1:], null_row=n - 1,
+                   count_all=count_all, summary_in=summary if gather else None,
+                   summary_out=s_out)
+                torch.cuda.synchronize()
+                outs.append((inv, nxt, counts, flags, s_out))
+            for a, b in zip(*outs):
+                assert torch.equal(a, b), (n, gather, count_all)
+            fired = (outs[1][1] != 7).any(dim=1)  # no fired row is all 7s here
+            assert int(fired.sum()) > 0 and int(outs[1][3][1]) == 1
+        # the early exit: nothing is read or written when the flag is 0
+        inv, nxt = invalid.clone(), torch.full_like(invalid, 7)
+        counts = torch.zeros(words, dtype=torch.int32, device=card)
+        flags = torch.zeros(2, dtype=torch.int32, device=card)
+        s_out = torch.full((n_words,), 12345, dtype=torch.int32, device=card)
+        ppp.packed_pull(in_src, edge_epoch, node_epoch, is_real, frontier, nxt, inv, counts,
+                        flag_in=flags[:1], flag_out=flags[1:], summary_in=summary,
+                        summary_out=s_out)
+        torch.cuda.synchronize()
+        assert torch.equal(inv, invalid) and int((nxt != 7).sum()) == 0
+        assert int((s_out != 12345).sum()) == 0
+        assert int(counts.abs().sum()) == 0 and int(flags[1]) == 0
+
+
+@pytest.mark.parametrize("words", [1, 16])
+def test_packed_pull_unaligned_slot_tables_match_plain(card, words):
+    """Slot tables at k = 8 that start 4 bytes off a 16-byte boundary take
+    the scalar slot loads (and at k = 10, 8 bytes off, the int2 ones): the
+    level equals the plain version's."""
+    from stl_fusion_tpu_torch.ops import packed_pull as ppp
+
+    for k, shift in ((8, 1), (8, 2), (10, 1)):
+        in_src, edge_epoch, node_epoch, is_real, frontier, invalid, summary = _summary_inputs(
+            card, words, k, 0.05, 3001, 7 * k + shift)
+        tables = []
+        for t in (in_src, edge_epoch):
+            buf = torch.empty(t.numel() + shift, dtype=torch.int32, device=card)
+            view = buf[shift:].view(t.shape)
+            view.copy_(t)
+            tables.append(view)
+        assert ppp._slot_vec(k, *tables) < (4 if k == 8 else 2)
+        outs = []
+        for fn, (src, ep) in ((ppp.packed_pull_plain, (in_src, edge_epoch)),
+                              (ppp.packed_pull, tables)):
+            inv, nxt = invalid.clone(), torch.full_like(invalid, 7)
+            counts = torch.zeros(words, dtype=torch.int32, device=card)
+            s_out = torch.zeros_like(summary)
+            fn(src, ep, node_epoch, is_real, frontier, nxt, inv, counts, null_row=3000,
+               summary_in=summary, summary_out=s_out)
+            torch.cuda.synchronize()
+            outs.append((inv, nxt, counts, s_out))
+        for a, b in zip(*outs):
+            assert torch.equal(a, b), (k, shift)
+
+
 @pytest.mark.parametrize("group", [1, 3, 8])
 def test_packed_wave_on_card_matches_cpu(card, group, monkeypatch):
     """Whole packed waves on the card (W = 16, levels in groups of 1, 3 and

@@ -25,6 +25,7 @@ import stl_fusion_tpu_torch.parallel as ppar
 from stl_fusion_tpu.graph.synthetic import power_law_dag
 from stl_fusion_tpu_torch import bench as pbench
 from stl_fusion_tpu_torch.ops import packed_pull as ppp
+from stl_fusion_tpu_torch.ops.bitops import pack_bits, unpack_bits
 
 from test_device_graph import python_wave_oracle, random_dag
 
@@ -174,6 +175,89 @@ def test_packed_pull_level_and_wave_match_jax(words):
     pinv, pcounts = pwave(torch.from_numpy(frontier), torch.from_numpy(in_src),
                           torch.from_numpy(edge_epoch), torch.from_numpy(node_epoch),
                           torch.from_numpy(is_real), torch.from_numpy(invalid.copy()), stats)
+    np.testing.assert_array_equal(pinv.numpy(), np.asarray(jinv))
+    np.testing.assert_array_equal(pcounts.numpy(), np.asarray(jcounts))
+    assert stats["levels"] >= 2
+
+
+def _words_np(rng, shape):
+    return rng.integers(-(2**31), 2**31, size=shape, dtype=np.int64).astype(np.int32)
+
+
+def _garbage_scratch(monkeypatch, seed):
+    """``run_pull_wave``'s frontier buffers and summaries come filled with
+    random words: a wave can only be right if it reads no row of them that
+    it has not written (a frontier row under a clear bit)."""
+    rng = np.random.default_rng(seed)
+    fresh = ppp._wave_buffers
+
+    def buffers(invalid):
+        out = fresh(invalid)
+        for t in out:
+            t.copy_(torch.from_numpy(_words_np(rng, tuple(t.shape))))
+        return out
+    monkeypatch.setattr(ppp, "_wave_buffers", buffers)
+
+
+@pytest.mark.parametrize("words", [1, 3, 16])
+def test_packed_pull_summary_level_and_wave_match_jax(words, monkeypatch):
+    """The fired summary. One level of ``packed_pull`` on the CPU given the
+    previous level's summary, with garbage in every frontier row whose bit
+    is clear, against the JAX level body (``packed_wave.py:97-104``, written
+    out in jnp) on the frontier with those rows zero: invalid, counts, the
+    flag, the new summary (the rows that fire) and next on those rows, the
+    other rows of next untouched; then a whole wave of the port's
+    ``build_packed_sharded_wave`` with its scratch filled with garbage
+    against the JAX package's, at k = 10 with dead slots and pad rows."""
+    rng = np.random.default_rng(50 + words)
+    n, k = 640, 10
+    in_src = rng.integers(0, n, size=(n, k)).astype(np.int32)
+    in_src[n - 40:] = n - 41
+    node_epoch = rng.integers(0, 3, size=n).astype(np.int32)
+    node_epoch[n - 41:] = -2
+    edge_epoch = np.where(rng.random((n, k)) < 0.5, node_epoch[:, None],
+                          node_epoch[:, None] + 1).astype(np.int32)
+    edge_epoch[rng.random((n, k)) < 0.2] = -1
+    is_real = rng.random(n) < 0.85
+    lit = rng.random(n) < 0.3
+    frontier = np.where(lit[:, None], _words_np(rng, (n, words)), 0).astype(np.int32)
+    frontier[:, 0] |= np.where(lit, np.int32(-(2**31)), 0).astype(np.int32)  # lane 31
+    garbage = np.where(lit[:, None], frontier, _words_np(rng, (n, words))).astype(np.int32)
+    invalid = _words_np(rng, (n, words))
+    invalid[rng.random(n) < 0.5] = 0
+
+    live = jnp.asarray(edge_epoch) == jnp.asarray(node_epoch)[:, None]
+    contrib = jnp.where(live[:, :, None], jnp.asarray(frontier)[jnp.asarray(in_src)], 0)
+    fire = contrib[:, 0]
+    for j in range(1, k):
+        fire = fire | contrib[:, j]
+    fire = np.asarray(fire & ~jnp.asarray(invalid))
+    fired = (fire != 0).any(axis=1)
+
+    t = torch.from_numpy
+    inv, nxt = t(invalid.copy()), torch.full((n, words), 7, dtype=torch.int32)
+    counts = torch.zeros(words, dtype=torch.int32)
+    flags = torch.tensor([1, 0], dtype=torch.int32)
+    summary_out = torch.full((-(-n // 32),), 12345, dtype=torch.int32)
+    ppp.packed_pull(t(in_src), t(edge_epoch), t(node_epoch), t(is_real), t(garbage), nxt, inv,
+                    counts, flag_in=flags[:1], flag_out=flags[1:],
+                    summary_in=pack_bits(t(lit)), summary_out=summary_out)
+    np.testing.assert_array_equal(inv.numpy(), invalid | fire)
+    popc = np.vectorize(lambda x: bin(int(x) & 0xFFFFFFFF).count("1"))
+    np.testing.assert_array_equal(counts.numpy(), popc(fire[is_real]).sum(axis=0))
+    assert int(flags[1]) == int(fired.any()) == 1
+    np.testing.assert_array_equal(unpack_bits(summary_out, n).numpy(), fired)
+    np.testing.assert_array_equal(nxt.numpy()[fired], fire[fired])
+    assert (nxt.numpy()[~fired] == 7).all()
+
+    jwave = jpar.build_packed_sharded_wave(jpar.graph_mesh())
+    jinv, jcounts = jwave(jnp.asarray(frontier), jnp.asarray(in_src), jnp.asarray(edge_epoch),
+                          jnp.asarray(node_epoch), jnp.asarray(is_real), jnp.asarray(invalid))
+    _garbage_scratch(monkeypatch, words)
+    pwave = ppar.build_packed_sharded_wave(ppar.graph_mesh(8, device="cpu"))
+    stats = {}
+    pinv, pcounts = pwave(t(frontier), t(in_src), t(edge_epoch), t(node_epoch), t(is_real),
+                          t(invalid.copy()), stats)
     np.testing.assert_array_equal(pinv.numpy(), np.asarray(jinv))
     np.testing.assert_array_equal(pcounts.numpy(), np.asarray(jcounts))
     assert stats["levels"] >= 2

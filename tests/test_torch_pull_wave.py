@@ -14,7 +14,9 @@ import torch
 
 from stl_fusion_tpu.graph.synthetic import power_law_dag
 from stl_fusion_tpu.ops import pull_wave as jpw
+from stl_fusion_tpu_torch.ops import packed_pull as ppp
 from stl_fusion_tpu_torch.ops import pull_wave as ppw
+from stl_fusion_tpu_torch.ops.bitops import pack_bits, unpack_bits
 
 from test_device_graph import python_wave_oracle
 
@@ -105,3 +107,67 @@ def test_pull_wave_counts_cumulative_bits_and_keeps_the_null_row_clear():
         assert int(ptotal) == int(jtotal)
     real = pstate.invalid_bits.numpy()[:n].view(np.uint32)
     assert int(ptotal) == sum(bin(int(x)).count("1") for x in real)
+
+
+def test_pull_wave_summary_mode_with_the_null_row_matches_jax(monkeypatch):
+    """The fired summary at W = 1 with the null row. One level of
+    ``packed_pull`` on the CPU (the null row's fire forced to 0) given the
+    previous level's summary, with garbage in every row whose bit is clear,
+    against JAX's pull level body (``pull_wave.py:160-167``, in jnp) on the
+    frontier with those rows zero; then ``build_pull_wave32`` with the
+    wave's scratch filled with garbage and the null row seeded, against
+    the JAX package's: words and count."""
+    n = 400
+    src, dst = power_law_dag(n, avg_degree=3.0, seed=8)
+    g = ppw.build_pull_graph(src, dst, n, k=8)
+    rng = np.random.default_rng(8)
+    pstate, pwave = ppw.build_pull_wave32(g, device="cpu")
+    in_src, edge_epoch, is_real = pwave.garrays
+    n_rows, n_tot = in_src.shape[0], g.n_tot
+
+    def rand():
+        return rng.integers(-(2**31), 2**31, n_rows, dtype=np.int64).astype(np.int32)
+    lit = rng.random(n_rows) < 0.4
+    lit[n_tot] = True  # a seeded null row conducts for one level, as in JAX
+    frontier = np.where(lit, rand() | 1, 0).astype(np.int32)
+    garbage = np.where(lit, frontier, rand()).astype(np.int32)
+    invalid = np.where(rng.random(n_rows) < 0.5, rand(), 0).astype(np.int32)
+
+    live = jnp.asarray(edge_epoch.numpy()) == jnp.asarray(pstate.node_epoch.numpy())[:, None]
+    contrib = jnp.where(live, jnp.asarray(frontier)[jnp.asarray(in_src.numpy())], 0)
+    fire = contrib[:, 0]
+    for j in range(1, in_src.shape[1]):
+        fire = fire | contrib[:, j]
+    fire = np.asarray((fire & ~jnp.asarray(invalid)).at[n_tot].set(0))
+
+    t = torch.from_numpy
+    inv, nxt = t(invalid.copy()).view(-1, 1), torch.full((n_rows, 1), 7, dtype=torch.int32)
+    counts = torch.zeros(1, dtype=torch.int32)
+    summary_out = torch.full((-(-n_rows // 32),), 12345, dtype=torch.int32)
+    ppp.packed_pull(in_src, edge_epoch, pstate.node_epoch, is_real, t(garbage).view(-1, 1), nxt,
+                    inv, counts, null_row=n_tot, summary_in=pack_bits(t(lit)),
+                    summary_out=summary_out)
+    np.testing.assert_array_equal(inv.view(-1).numpy(), invalid | fire)
+    fired = fire != 0
+    np.testing.assert_array_equal(unpack_bits(summary_out, n_rows).numpy(), fired)
+    np.testing.assert_array_equal(nxt.view(-1).numpy()[fired], fire[fired])
+    assert (nxt.view(-1).numpy()[~fired] == 7).all() and not fired[n_tot]
+
+    bits = ppw.seeds_to_bits(g.n_tot, [rng.choice(n, 3, replace=False) for _ in range(32)])
+    bits[g.n_tot] = -1  # the null row seeded in every lane
+    jstate, jwave = jpw.build_pull_wave32(g)
+    jstate, jtotal = jwave(jnp.asarray(bits), jstate)
+    seeded = np.random.default_rng(9)
+    fresh = ppp._wave_buffers
+
+    def buffers(invalid):
+        out = fresh(invalid)
+        for b in out:
+            b.copy_(t(seeded.integers(-(2**31), 2**31, tuple(b.shape),
+                                      dtype=np.int64).astype(np.int32)))
+        return out
+    monkeypatch.setattr(ppp, "_wave_buffers", buffers)
+    stats = {}
+    pstate, ptotal = pwave(t(bits), pstate, stats)
+    np.testing.assert_array_equal(pstate.invalid_bits.numpy(), np.asarray(jstate.invalid_bits))
+    assert int(ptotal) == int(jtotal) and stats["levels"] >= 2
