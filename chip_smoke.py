@@ -30,14 +30,17 @@ user calls. Phases, each printing one JSON line:
    ``run_wave_collect`` from 256 shallow seeds and ``run_wave_with_stats``
    from hub nodes, each held EXACTLY against an independent numpy level-BFS
    oracle on a src-sorted CSR; the union wave must make one merged
-   ``wave_expand`` launch per level and only two ``or_popcount`` launches;
+   ``wave_expand`` launch per level and only two ``or_popcount`` launches
+   (the seed merge and the finalize's delta form), the collect wave one
+   (the seed gate);
 5. ``sharded_10m`` — the same graph and epochs as a ``ShardedDeviceGraph``
    on a mesh of 8 logical shards on the card: the 100,000-seed ``run_wave``
    with ``exchange="ring"`` (the ring all-gather kernel), ``"packed"`` and
    ``"bool"``, and ``run_wave_collect`` from the 256 shallow seeds, each held
    EXACTLY against the same oracle; each wave must make ONE ``wave_expand``
    launch per level for all 8 shards, one ring gather (one CUDA launch) per
-   level on the ring, and ``or_popcount`` only for the seed merge;
+   level on the ring, and ONE ``or_popcount`` launch (the shards form) for
+   the seed merge of all 8 shards;
 6. ``mirror_10m`` — ``build_topo_mirror`` on ``power_law_10m``'s graph,
    then the 100,000-seed union as ONE topo sweep (one ``topo_sweep`` launch
    per non-empty level, no ``wave_expand``) and the 256 shallow seeds as one
@@ -62,6 +65,10 @@ user calls. Phases, each printing one JSON line:
 8. ``profile`` — ``torch.profiler`` over one more 10M union wave and one
    sharded ring wave: device time by kernel, device calls per wave, the
    device's idle share, and the level kernel's launches (one per level);
+   then ``wave_ops``: one union wave and one gated ``run_wave``, each
+   making only its ``or_popcount`` forms' launches (merge and delta; gate)
+   and dispatching no ``aten.bitwise_not`` (the elementwise gate and
+   finalize that e0d54c8 ran around ``or_popcount``);
 9. ``churn_10m`` — the mirror of ``mirror_10m`` serving a churning graph,
    in ``perf/live_path.py``'s shape (6 rounds of 2,000 level-ordered edges,
    one level-violating edge in the run, and 4 recomputes, each round then
@@ -104,7 +111,13 @@ user calls. Phases, each printing one JSON line:
    its gated and apply parts from the backend's wave record, launches,
    levels), the last burst profiled;
 11. ``kernels`` — every kernel form against its plain PyTorch version on the
-   card, exact: ``or_popcount``; ``topo_sweep`` (the whole topo_10m sweep,
+   card, exact: ``or_popcount``'s four forms (merge, gate, delta at n = 7,
+   128, 40,000 and 524,289 words, aliased as the main path calls them, and
+   shards on the mesh's 8 × 39,064 words), each with a row at the main
+   path's shape timed in turns against e0d54c8's wrapper and kernel doing
+   the same job when the reference tree is there, and the launch path's
+   host cost on a one-word call (``_build.launch``, ``_build.entry``, the
+   wrapper); ``topo_sweep`` (the whole topo_10m sweep,
    its widest level alone, the lane burst's sweep on the churned mirror,
    with its changed flag held against a before/after comparison, and a
    sweep at k = 10 in-slots on a ``build_topo_mirror(k=8)`` mirror with
@@ -117,8 +130,8 @@ user calls. Phases, each printing one JSON line:
    leg's level 0 (W = 1, the null row), each with the bound of what its
    inputs need beside the full-table bound, each also without the
    summaries and, when ``_smoke_tree/ref/packed_pull.cu`` (a reference
-   source with the entry of the kernel before the fired summary, or
-   ``PACKED_PULL_REF``) is there, that kernel on the same inputs, timed in
+   source with the entry of the kernel before the fired summary, see
+   :data:`REF_DIR`) is there, that kernel on the same inputs, timed in
    turns; ``lane_finish`` at the mesh shape (the identity row map);
    ``wave_expand`` (pure) and
    ``wave_expand_merge`` at the union wave's first and widest levels;
@@ -138,9 +151,9 @@ and the load's seconds).
 
 The main path is eight paths, each driven with every kernel's launch count
 set to 0 just before it and read just after: phases 3-4 (the dense wave,
-with HelloCart's mesh lane burst) must launch ``or_popcount`` and
-``wave_expand_merge``, phase 5 (the sharded wave) ``or_popcount``,
-``wave_expand_shards`` and ``ring_all_gather``, phases 6-7 (the mirror)
+with HelloCart's mesh lane burst) must launch each ``or_popcount`` form
+and ``wave_expand_merge``, phase 5 (the sharded wave) ``or_popcount``'s
+shards form and no other, ``wave_expand_shards`` and ``ring_all_gather``, phases 6-7 (the mirror)
 ``topo_sweep`` and no ``wave_expand``, phase 7b (the mesh leg)
 ``packed_pull`` and no ``topo_sweep`` or ``lane_finish``, phase 9 (the
 churn) ``topo_sweep`` and ``lane_finish``, phase 10 (the live loop)
@@ -601,17 +614,22 @@ def phase_power_law(device, card: str, n: int = N_NODES, n_seeds: int = N_UNION_
     from stl_fusion_tpu_torch.ops import wave as wave_mod
 
     union_seeds = rng.choice(n, n_seeds, replace=False)
-    opc0, merge0 = opc_mod.launches, wave_mod.form_launches["merge"]
+    def opc_launches():
+        return (opc_mod.launches, *opc_mod.form_launches.values())
+
+    opc0, merge0 = opc_launches(), wave_mod.form_launches["merge"]
     (count, ids), ms = timed(lambda: g.run_waves_union([union_seeds.tolist()]))
     union_levels = []
     want = want_union = oracle.wave(union_seeds, levels=union_levels)
     check("run_waves_union", count, ids, want)
     # one merged wave_expand per level (the last one lights nothing); the
-    # only or_popcounts are the seed merge and the union finalize
-    launched = (opc_mod.launches - opc0, wave_mod.form_launches["merge"] - merge0)
-    if launched != (2, want[2] + 1):
-        raise AssertionError(f"union wave launched (or_popcount, wave_expand_merge) = {launched},"
-                             f" not (2, {want[2] + 1})")
+    # only or_popcounts are the seed merge and the union finalize (delta)
+    launched = (tuple(b - a for a, b in zip(opc0, opc_launches())),
+                wave_mod.form_launches["merge"] - merge0)
+    if launched != ((2, 1, 0, 1, 0), want[2] + 1):
+        raise AssertionError(
+            f"union wave launched (or_popcount (all, merge, gate, delta, shards), "
+            f"wave_expand_merge) = {launched}, not ((2, 1, 0, 1, 0), {want[2] + 1})")
     # the same wave again from a cleared state: the first run pays one-time
     # lazy loading of the PyTorch kernels it touches
     g.clear_invalid()
@@ -623,9 +641,15 @@ def phase_power_law(device, card: str, n: int = N_NODES, n_seeds: int = N_UNION_
 
     g.clear_invalid()
     shallow = n - 1 - rng.choice(n // 100, 256, replace=False)
+    opc0 = opc_launches()
     (count, ids), ms = timed(lambda: g.run_wave_collect(shallow.tolist()))
     want = want_shallow = oracle.wave(shallow)
     check("run_wave_collect", count, ids, want)
+    # the seed gate is ONE launch (no elementwise gate before it)
+    launched = tuple(b - a for a, b in zip(opc0, opc_launches()))
+    if launched != (1, 0, 1, 0, 0):
+        raise AssertionError(f"run_wave_collect launched or_popcount (all, merge, gate, delta, "
+                             f"shards) = {launched}, not (1, 0, 1, 0, 0)")
     out["waves"]["collect"] = {"seeds": 256, "newly": count, "levels": want[2], "wave_ms": ms,
                                "invalidations_per_s": count / (ms / 1e3)}
 
@@ -638,7 +662,9 @@ def phase_power_law(device, card: str, n: int = N_NODES, n_seeds: int = N_UNION_
                                   "invalidations_per_s": count / (ms / 1e3)}
     if device.type == "cuda":
         out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
-    out["launches_so_far"] = {"or_popcount": opc_mod.launches, "wave_expand": wave_mod.launches,
+    out["launches_so_far"] = {"or_popcount": opc_mod.launches,
+                              **{f"or_popcount.{k}": v for k, v in opc_mod.form_launches.items()},
+                              "wave_expand": wave_mod.launches,
                               **{f"wave_expand.{k}": v for k, v in wave_mod.form_launches.items()}}
     # the union wave's levels, for the kernel comparison: each level's
     # frontier, its edges (all out-edges of the frontier, stale included)
@@ -679,7 +705,9 @@ def phase_sharded(device, card: str, level: dict) -> dict:
     def launch_counts():
         return {"wave_expand": wave_mod.launches,
                 "wave_expand_shards": wave_mod.form_launches["shards"],
-                "or_popcount": opc_mod.launches, "ring_all_gather": rag.launches,
+                "or_popcount": opc_mod.launches,
+                "or_popcount.shards": opc_mod.form_launches["shards"],
+                "ring_all_gather": rag.launches,
                 "ring_cuda_launches": rag.cuda_launches}
 
     src, dst, n = level["src"], level["dst"], level["n"]
@@ -725,10 +753,11 @@ def phase_sharded(device, card: str, level: dict) -> dict:
             launched = {k: v - before[k] for k, v in launch_counts().items()}
             rec[f"launches_{run}"] = launched
             # per level ONE wave_expand launch for all shards (the last level
-            # lights nothing); or_popcount only merges the seeds, once per shard
+            # lights nothing); or_popcount only merges the seeds, ONE launch
+            # for every shard
             calls = sg.last_levels + 1
             want_launched = {"wave_expand": calls, "wave_expand_shards": calls,
-                             "or_popcount": mesh.size,
+                             "or_popcount": 1, "or_popcount.shards": 1,
                              "ring_all_gather": calls if exchange == "ring" else 0,
                              "ring_cuda_launches": calls if exchange == "ring" else 0}
             if launched != want_launched:
@@ -1917,6 +1946,10 @@ def profile_checked(device, fn, want: dict, what: str) -> tuple:
 #: each kernel form's symbol in the profiler's kernel names
 SYMBOLS = {
     "or_popcount": "or_popcount_kernel",
+    "or_popcount.merge": "or_popcount_kernel<0>",
+    "or_popcount.gate": "or_popcount_kernel<1>",
+    "or_popcount.delta": "or_popcount_kernel<2>",
+    "or_popcount.shards": "or_popcount_kernel<3>",
     "wave_expand": "wave_expand_kernel<false,false>",
     "wave_expand_merge": "wave_expand_kernel<true,false>",
     "wave_expand_shards": "wave_expand_kernel<true,true>",
@@ -2238,34 +2271,55 @@ def tail_levels(lit) -> dict:
     return {"median": by_count[(len(by_count) - 1) // 2], "last": nonempty[-1]}
 
 
-#: a reference packed_pull source for the in-call A/B, with the C entry of
-#: the kernel before the fired summary (``git show`` it there before a card
-#: run: the card's copy of the repo has no .git)
-REF_PACKED_PULL = os.environ.get("PACKED_PULL_REF", "_smoke_tree/ref/packed_pull.cu")
+#: the reference code of the in-call A/Bs, fetched there with ``git show``
+#: before a card run (the card's copy of the repo has no .git):
+#: ``packed_pull.cu``, a512369's kernel (before the fired summary, its own C
+#: entry), and ``e0d54c8/``, e0d54c8's ``or_popcount`` (its
+#: ``ops/_build.py``, ``ops/or_popcount.py`` and ``csrc/or_popcount.cu`` in
+#: the package layout)
+REF_DIR = "_smoke_tree/ref"
+_references: dict = {}
 
 
-def load_reference_packed_pull():
-    """The reference ``packed_pull_launch`` (every row read and written, no
-    summary), built with the port's flags, or None when its source is not
-    in the checkout."""
+def load_reference(name: str):
+    """The reference ``name`` from :data:`REF_DIR`, built once, or None when
+    it is not in the checkout: ``"packed_pull"``, a512369's
+    ``packed_pull_launch`` (every row read and written, no summary) built
+    with the port's flags; ``"or_popcount"``, e0d54c8's ``or_popcount``
+    module (its wrapper and kernel as they were: a ``torch.zeros`` count and
+    ``_build.launch`` a call), its kernel built by its own ``_build``."""
+    if name in _references:
+        return _references[name]
     import ctypes
+    import importlib
+    import types
 
     from stl_fusion_tpu_torch.ops import _build
 
-    if not os.path.exists(REF_PACKED_PULL):
-        return None
-    out = str(_build.BUILD_DIR / "ref_packed_pull.so")
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", out, REF_PACKED_PULL],
-                          capture_output=True, text=True, timeout=600)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed for {REF_PACKED_PULL}:\n{proc.stdout}{proc.stderr}")
-    fn = ctypes.CDLL(out).packed_pull_launch
-    P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    fn.argtypes, fn.restype = [P] * 10 + [LL, I, I, LL, I, I, I, P], ctypes.c_int
-    emit({"phase": "kernels_reference", "source": REF_PACKED_PULL,
-          **_build._ptxas_stats(proc.stdout + proc.stderr)})
-    return fn
+    path = os.path.join(REF_DIR, {"packed_pull": "packed_pull.cu",
+                                  "or_popcount": "e0d54c8/ops/or_popcount.py"}[name])
+    ref = None
+    if os.path.exists(path) and name == "packed_pull":
+        out = str(_build.BUILD_DIR / "ref_packed_pull.so")
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", out, path],
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {path}:\n{proc.stdout}{proc.stderr}")
+        ref = ctypes.CDLL(out).packed_pull_launch
+        P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        ref.argtypes, ref.restype = [P] * 10 + [LL, I, I, LL, I, I, I, P], ctypes.c_int
+        info = _build._ptxas_stats(proc.stdout + proc.stderr)
+    elif os.path.exists(path):
+        pkg = types.ModuleType("ref_or_popcount_ops")
+        pkg.__path__ = [os.path.abspath(os.path.dirname(path))]
+        sys.modules[pkg.__name__] = pkg
+        ref = importlib.import_module("ref_or_popcount_ops.or_popcount")
+        info = ref._build.build_all(["or_popcount"])["or_popcount"]
+    if ref is not None:
+        emit({"phase": "kernels_reference", "source": path, **info})
+    _references[name] = ref
+    return ref
 
 
 def packed_pull_rows(device, packed, live, row, check, restored, timed_pair) -> None:
@@ -2294,7 +2348,7 @@ def packed_pull_rows(device, packed, live, row, check, restored, timed_pair) -> 
               "build_packed_sharded_wave; no Pallas kernel)")
     rep_pull = ("stl_fusion_tpu/ops/pull_wave.py:159 (XLA level of _pull_wave32_impl; "
                 "no Pallas kernel)")
-    ref = load_reference_packed_pull()
+    ref = load_reference("packed_pull")
     stream = torch.cuda.current_stream().cuda_stream if ref is not None else None
 
     def level_row(name, replaces, tables, node_epoch, inputs, null_row, shape):
@@ -2481,10 +2535,216 @@ def packed_pull_rows(device, packed, live, row, check, restored, timed_pair) -> 
               pleg["seed_bits"][0].view(-1, 1), pinv, n_tot, "the pull leg's 32 waves")
 
 
+def aten_ops(fn) -> dict:
+    """{aten op: calls} that ``fn()`` dispatched, counted by a
+    ``TorchDispatchMode`` (the hand-written kernels' launches go through
+    ctypes and do not show)."""
+    from collections import Counter
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    seen = Counter()
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            seen[str(func.overloadpacket)] += 1  # e.g. "aten.bitwise_not"
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return dict(seen)
+
+
+def phase_wave_ops(g, seeds) -> dict:
+    """The dense waves' elementwise work around ``or_popcount``: one union
+    wave (the seed merge and the finalize's delta form) and one gated
+    ``run_wave`` (the gate form), each from a cleared state, must each make
+    exactly those ``or_popcount`` launches and dispatch no
+    ``aten.bitwise_not``. e0d54c8's path computed the gate, ``seed &
+    ~invalid``, and the finalize, ``invalid & ~before``, as elementwise
+    launches around its ``or_popcount`` (and zeroed each count), and neither
+    path has another ``~``."""
+    from stl_fusion_tpu_torch.ops import or_popcount as opc
+
+    out = {"phase": "wave_ops"}
+    for name, run, want in (
+            ("union", lambda: g.run_waves_union([seeds], mirror="off"), {"merge": 1, "delta": 1}),
+            ("run_wave", lambda: g.run_wave(seeds), {"gate": 1})):
+        g.clear_invalid()
+        before = dict(opc.form_launches)
+        ops = aten_ops(run)
+        launched = {k: v - before[k] for k, v in opc.form_launches.items() if v != before[k]}
+        out[name] = {"or_popcount": launched, "aten_ops": ops}
+        if launched != want or "aten.bitwise_not" in ops:
+            emit(out)
+            raise AssertionError(f"{name}: or_popcount forms {launched} (want {want}), "
+                                 f"aten.bitwise_not {ops.get('aten.bitwise_not', 0)} (want 0)")
+    g.clear_invalid()
+    emit(out)
+    return out
+
+
+def in_turns(device, ref_call, call, reps: int = 500) -> tuple:
+    """(ms of ``call``, ms of ``ref_call``, the four laps) timed in turns:
+    reference, this, this, reference."""
+    laps = [time_ms(f, device, reps=reps, warmup=20) for f in (ref_call, call, call, ref_call)]
+    return (laps[1] + laps[2]) / 2, (laps[0] + laps[3]) / 2, laps
+
+
+def or_popcount_rows(device, ga, sg, rng, row, check) -> None:
+    """``phase_kernels``' rows of ``or_popcount``: each form against its
+    plain version, exact, at n = 7, 128, 40,000 and 524,289 words (the
+    aliased calls of the main path included) and the shards form on the
+    8-shard mesh's words; then a row a form at the main path's shape, as the
+    main path calls it, timed in turns against e0d54c8's wrapper and kernel
+    doing the same job (its merge; the gate as ``new & ~old`` then its merge;
+    the finalize as ``new & ~old`` then its merge into ``old``; the shards
+    as a merge a shard, ``torch.stack`` and a sum) when the reference tree
+    is there; and the launch path's fixed host cost on a one-word call."""
+    import numpy as np
+    import torch
+
+    from stl_fusion_tpu_torch.ops import _build
+    from stl_fusion_tpu_torch.ops import or_popcount as opc
+    from stl_fusion_tpu_torch.ops import wave as tw
+
+    src = "stl_fusion_tpu_torch/csrc/or_popcount.cu"
+    rep = "stl_fusion_tpu/ops/pallas_kernels.py:47"
+    ref = load_reference("or_popcount")
+
+    def words(n):
+        return torch.from_numpy(rng.integers(-(2**31), 2**31, n, dtype=np.int32)).to(device)
+
+    err = {"merge": 0, "gate": 0, "delta": 0, "shards": 0}
+    for n in (7, 128, 40000, 524289):
+        new, old = words(n), words(n)
+        want_m, want_d, want_c = opc.or_popcount_gate_plain(new, old)
+        a, b = new.clone(), old.clone()
+        err["merge"] = max(err["merge"], check(f"or_popcount at n={n}", opc.or_popcount(new, old),
+                                               (want_m, want_c)),
+                           check(f"or_popcount (out=old) at n={n}",
+                                 [*opc.or_popcount(a, b, out=b), a], (want_m, want_c, new)))
+        a, b = new.clone(), old.clone()
+        err["gate"] = max(err["gate"], check(f"or_popcount_gate at n={n}",
+                                             [*opc.or_popcount_gate(new, old), new, old],
+                                             (want_m, want_d, want_c, a, b)),
+                          check(f"or_popcount_gate (out=old, delta=new) at n={n}",
+                                [*opc.or_popcount_gate(a, b, out=b, delta=a), a, b],
+                                (want_m, want_d, want_c, want_d, want_m)))
+        a, b = new.clone(), old.clone()
+        err["delta"] = max(err["delta"], check(f"or_popcount_delta at n={n}",
+                                               [*opc.or_popcount_delta(new, old), old],
+                                               (want_d, want_c, b)),
+                           check(f"or_popcount_delta (delta=new) at n={n}",
+                                 [*opc.or_popcount_delta(a, old, delta=a), a],
+                                 (want_d, want_c, want_d)))
+
+    # the shards form on the mesh's shards (8 x 39,064 words at 10M nodes):
+    # clones of the ring graph's invalid words, so the graph stays as it is
+    inv0 = [words(x.shape[0]) for x in sg.g.invalid]
+    inv, inv_plain = [x.clone() for x in inv0], [x.clone() for x in inv0]
+    table = tw.ShardTable(*sg.g._replace(invalid=tuple(inv)))
+    plain_table = tw.ShardTable(*sg.g._replace(invalid=tuple(inv_plain)))
+    frontier = words(len(table) * table.width).view(len(table), table.width)
+    err["shards"] = check("or_popcount_shards",
+                          [*opc.or_popcount_shards(frontier, table), *inv],
+                          [*opc.or_popcount_shards_plain(frontier, plain_table), *inv_plain])
+
+    # the main path's shape: the dense wave's invalid words, 524,289 at 10M
+    n = ga.invalid.shape[0]
+    seed, inv_d, before = words(n), words(n), words(n)
+    shape = f"int32[{n}] x2"
+    forms = {
+        "merge": dict(
+            call=lambda: opc.or_popcount(seed, inv_d, out=inv_d),
+            plain=lambda: opc.or_popcount_plain(seed, inv_d, out=inv_d),
+            ref=lambda: ref.or_popcount(seed, inv_d, out=inv_d),
+            n_bytes=12 * n + 8, n_ops=4 * n, shape=shape),
+        "gate": dict(
+            call=lambda: opc.or_popcount_gate(seed, inv_d, out=inv_d, delta=seed),
+            plain=lambda: opc.or_popcount_gate_plain(seed, inv_d, out=inv_d, delta=seed),
+            ref=lambda: ref.or_popcount(seed & ~inv_d, inv_d, out=inv_d),
+            n_bytes=16 * n + 8, n_ops=4 * n, shape=shape),
+        "delta": dict(
+            call=lambda: opc.or_popcount_delta(inv_d, before),
+            plain=lambda: opc.or_popcount_delta_plain(inv_d, before),
+            ref=lambda: (inv_d & ~before, ref.or_popcount(inv_d, before, out=before)),
+            n_bytes=12 * n + 8, n_ops=3 * n, shape=shape),
+        "shards": dict(
+            call=lambda: opc.or_popcount_shards(frontier, table),
+            plain=lambda: opc.or_popcount_shards_plain(frontier, plain_table),
+            ref=lambda: torch.stack([ref.or_popcount(frontier[d, :table.words], x, out=x)[1]
+                                     for d, x in enumerate(inv)]).sum(),
+            n_bytes=12 * len(table) * table.words + 8 * (len(table) + 1),
+            n_ops=4 * len(table) * table.words,
+            shape=f"{len(table)} shards x int32[{table.words}] (rows of {table.width})"),
+    }
+    for form, f in forms.items():
+        if ref is not None:
+            ms, ref_ms, laps = in_turns(device, f["ref"], f["call"])
+        else:
+            ms, ref_ms, laps = time_ms(f["call"], device, reps=500, warmup=20), None, None
+        name = "or_popcount" if form == "merge" else f"or_popcount ({form})"
+        row(name, f"or_popcount.{form}", src, rep, err[form], ms,
+            time_ms(f["plain"], device, reps=5), f["n_bytes"], f["n_ops"], None,
+            shape=f["shape"], call=f["call"], ref_e0d54c8_ms=ref_ms, laps_ref_this_this_ref=laps)
+
+    # the launch path's fixed host cost, on a one-word merge: through
+    # _build.launch (library, entry and device looked up a call) and through
+    # the entry resolved once; then this wrapper and e0d54c8's on the same call
+    one_new, one_old, count = words(1), words(1), torch.empty((), dtype=torch.int64,
+                                                                device=device)
+    opc.or_popcount(one_new, one_old, out=one_old)  # the stream's ticket scratch exists
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    _, scratch_ptr, slots = opc._scratch[(idx, torch._C._cuda_getCurrentRawStream(idx))]
+    args = (opc._ARGS.pack(0, one_new.data_ptr(), 0, one_old.data_ptr(), one_old.data_ptr(), 0,
+                           0, 1, 1, scratch_ptr, slots, count.data_ptr()),)
+    fn = _build.entry("or_popcount", "or_popcount_launch")
+
+    def via_launch():
+        _build.launch("or_popcount", "or_popcount_launch", *args)
+
+    def via_entry():
+        if fn(*args, torch._C._cuda_getCurrentRawStream(idx)):
+            raise RuntimeError("or_popcount_launch failed")
+
+    def wrapper():
+        opc.or_popcount(one_new, one_old, out=one_old)
+
+    def ref_wrapper():
+        ref.or_popcount(one_new, one_old, out=one_old)
+
+    def host_ms(fn, reps=2000):
+        """ms a call on the host clock: the enqueue rate while the card
+        keeps up (a one-word kernel takes less than its launch)."""
+        for _ in range(20):
+            fn()
+        sync(device)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        t1 = time.perf_counter()
+        sync(device)
+        return (t1 - t0) * 1e3 / reps
+
+    paths = {"launch": via_launch, "entry": via_entry, "wrapper": wrapper}
+    if ref is not None:
+        paths["ref_e0d54c8_wrapper"] = ref_wrapper
+    cost = {}
+    for key, fn_ in paths.items():
+        cost[f"{key}_ms"] = time_ms(fn_, device, reps=1000)
+        cost[f"{key}_host_ms"] = host_ms(fn_)
+    if int(count) != 0 or not torch.equal(one_old, one_new | one_old):
+        raise AssertionError("the one-word launches did not merge")
+    row("or_popcount launch path (1 word)", "or_popcount.merge", src, rep, 0, cost["entry_ms"],
+        time_ms(lambda: opc.or_popcount_plain(one_new, one_old, out=one_old), device, reps=100),
+        20, 4, None, shape="int32[1] x2", call=via_entry, main_path=False, launches=0, **cost)
+
+
 def profiled(device, call, form: str, name: str, reps: int = 20, per_call: int = 1) -> dict:
     """``device_ms`` (``torch.profiler``'s device time of one call of
     ``form``'s kernel) and ``profiled_launches`` over ``reps`` calls."""
-    form = form.split(".")[0]
+    form = form if form in SYMBOLS else form.split(".")[0]
     _, _, _, seen = profile_checked(device, lambda: [call() for _ in range(reps)],
                                     {form: reps * per_call}, name)
     return {"device_ms": seen[form][0] * per_call, "profiled_launches": seen[form][1]}
@@ -2502,7 +2762,6 @@ def phase_kernels(device, main_launches: dict, level: dict, sg, topo: dict, chur
     from stl_fusion_tpu_torch.ops import ring_all_gather as rag
     from stl_fusion_tpu_torch.ops import wave as tw
     from stl_fusion_tpu_torch.ops.bitops import pack_bits, pack_mask_host
-    from stl_fusion_tpu_torch.ops.or_popcount import or_popcount, or_popcount_plain
 
     rng = np.random.default_rng(1)
     rows = {}
@@ -2545,24 +2804,8 @@ def phase_kernels(device, main_launches: dict, level: dict, sg, topo: dict, chur
     src_wave = "stl_fusion_tpu_torch/csrc/wave_expand.cu"
     rep_wave = "stl_fusion_tpu/ops/wave.py:80 (XLA wave_step; no Pallas kernel)"
 
-    # or_popcount: random words with negative ones and ragged (non-x4) tails
-    err, ga = 0, level["ga"]
-    for n in (7, 128, 40000, 524289):
-        new = torch.from_numpy(rng.integers(-(2**31), 2**31, n, dtype=np.int32)).to(device)
-        old = torch.from_numpy(rng.integers(-(2**31), 2**31, n, dtype=np.int32)).to(device)
-        inplace = old.clone()
-        want = or_popcount_plain(new, old)
-        err = max(err, check(f"or_popcount at n={n}", or_popcount(new, old), want),
-                  check(f"or_popcount in place at n={n}", or_popcount(new, inplace, out=inplace),
-                        want))
-    n = ga.invalid.shape[0]  # the main path's word count (524,289 at 10M)
-    new = torch.from_numpy(rng.integers(-(2**31), 2**31, n, dtype=np.int32)).to(device)
-    old = torch.from_numpy(rng.integers(-(2**31), 2**31, n, dtype=np.int32)).to(device)
-    row("or_popcount", "or_popcount", "stl_fusion_tpu_torch/csrc/or_popcount.cu",
-        "stl_fusion_tpu/ops/pallas_kernels.py:47", err,
-        time_ms(lambda: or_popcount(new, old), device),
-        time_ms(lambda: or_popcount_plain(new, old), device), 12 * n + 8, 4 * n, None,
-        shape=f"int32[{n}] x2", call=lambda: or_popcount(new, old))
+    ga = level["ga"]
+    or_popcount_rows(device, ga, sg, rng, row, check)
 
     # the dense wave's level, pure and merged, at the union wave's first and
     # widest levels; bytes: 4 B per live edge, 8 B more per frontier edge,
@@ -2781,7 +3024,9 @@ def main() -> int:
 def _main(torch, device, dev, opc_mod, wave_mod, rag_mod, tpw_mod, brf_mod, ppp_mod) -> int:
 
     def counts():
-        return {"or_popcount": opc_mod.launches, "wave_expand.all_forms": wave_mod.launches,
+        return {"or_popcount": opc_mod.launches,
+                **{f"or_popcount.{k}": v for k, v in opc_mod.form_launches.items()},
+                "wave_expand.all_forms": wave_mod.launches,
                 "wave_expand": wave_mod.form_launches["pure"],
                 "wave_expand_merge": wave_mod.form_launches["merge"],
                 "wave_expand_shards": wave_mod.form_launches["shards"],
@@ -2795,6 +3040,7 @@ def _main(torch, device, dev, opc_mod, wave_mod, rag_mod, tpw_mod, brf_mod, ppp_
         tpw_mod.launches = tpw_mod.lane_finish_launches = brf_mod.launches = 0
         ppp_mod.launches = ppp_mod.early_exits = 0
         wave_mod.form_launches.update(dict.fromkeys(wave_mod.form_launches, 0))
+        opc_mod.form_launches.update(dict.fromkeys(opc_mod.form_launches, 0))
 
     def check(path, got, kernels, absent=()):
         """Each named kernel form must have launched on the path, each
@@ -2821,9 +3067,11 @@ def _main(torch, device, dev, opc_mod, wave_mod, rag_mod, tpw_mod, brf_mod, ppp_
 
     pl, dense = drive("dense", lambda: (phase_hellocart(device),
                                         phase_power_law(device, dev["nvidia_smi"]))[1],
-                      ("or_popcount", "wave_expand_merge"))
+                      ("or_popcount.merge", "or_popcount.gate", "or_popcount.delta",
+                       "or_popcount.shards", "wave_expand_merge"))
     sh, sharded = drive("sharded", lambda: phase_sharded(device, dev["nvidia_smi"], pl["level"]),
-                        ("or_popcount", "wave_expand_shards", "ring_all_gather"))
+                        ("or_popcount.shards", "wave_expand_shards", "ring_all_gather"),
+                        absent=("or_popcount.merge", "or_popcount.gate", "or_popcount.delta"))
     topo, mirror = drive("mirror", lambda: (phase_mirror(device, dev["nvidia_smi"], pl["level"]),
                                             phase_topo_10m(device, dev["nvidia_smi"]))[1],
                          ("topo_sweep",), absent=("wave_expand.all_forms", "lane_finish"))
@@ -2836,6 +3084,7 @@ def _main(torch, device, dev, opc_mod, wave_mod, rag_mod, tpw_mod, brf_mod, ppp_
     # before churn_10m adds edges to it
     phase_profile(device, "run_waves_union", lambda: g.run_waves_union([seeds], mirror="off"),
                   g.clear_invalid, calls)
+    phase_wave_ops(g, seeds)
     sg = sh.pop("ring_graph")
     phase_profile(device, "sharded run_wave (ring)", lambda: sg.run_wave(seeds),
                   sg.clear_invalid, calls, exchange="ring")

@@ -28,7 +28,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
-__all__ = ["HOST_LIBS", "KERNELS", "build_all", "build_info", "launch", "load", "load_host"]
+__all__ = ["HOST_LIBS", "KERNELS", "build_all", "build_info", "entry", "launch", "load",
+           "load_host"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -38,7 +39,8 @@ _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
 #: kernel → (source file, {C entry: its argument types}); one library per source
 KERNELS: Dict[str, tuple] = {
-    "or_popcount": ("or_popcount.cu", {"or_popcount_launch": [_P, _P, _P, _LL, _P, _P]}),
+    # the arguments packed as 12 int64 (``LaunchArgs``), then the stream
+    "or_popcount": ("or_popcount.cu", {"or_popcount_launch": [ctypes.c_char_p, _P]}),
     "wave_expand": ("wave_expand.cu", {
         "wave_expand_launch": [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _P],
         "wave_expand_merge_launch": [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _P, _P],
@@ -160,6 +162,14 @@ def load(name: str) -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _libs[name] = lib
     return lib
+
+
+def entry(name: str, entry: str):
+    """The bound ``ctypes`` function of C entry ``entry`` of kernel
+    ``name`` (built and loaded first if needed), for a wrapper that resolves
+    it once and passes the stream itself: :func:`launch` looks the library,
+    the entry and the device up on every call."""
+    return getattr(load(name), entry)
 
 
 def launch(name: str, entry: str, *args) -> None:

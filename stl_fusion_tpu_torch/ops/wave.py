@@ -26,10 +26,10 @@ level, ``parallel/sharded_wave.py``).
 The host reads the level count once per level: ``count == 0`` is exactly
 "the frontier is empty", because ``next`` already excludes invalid nodes.
 That replaces the JAX ``lax.while_loop`` condition at the same cost of one
-sync per level. The seed gate and the union's seed merge and finalize go
-through :func:`~.or_popcount.or_popcount`. Bool masks appear only at the
-public boundaries (seed frontiers in, newly masks out), as in the JAX
-package.
+sync per level. The seed gate, the union's seed merge and its finalize are
+one ``or_popcount`` launch each (``ops/or_popcount.py``: the gate, merge
+and delta forms). Bool masks appear only at the public boundaries (seed
+frontiers in, newly masks out), as in the JAX package.
 
 JAX donates the graph to each wave; the port updates ``g.invalid`` IN
 PLACE and returns ``g`` for the same call shape.
@@ -43,7 +43,7 @@ import torch
 
 from . import _build
 from .bitops import pack_bits, unpack_bits
-from .or_popcount import or_popcount, or_popcount_plain
+from .or_popcount import or_popcount, or_popcount_delta, or_popcount_gate, or_popcount_plain
 
 __all__ = [
     "GraphArrays",
@@ -261,7 +261,8 @@ class ShardTable:
 
     ``width`` is the row width of the next-frontier tensor: the shards'
     invalid word count rounded up to 4 words, so every row is 16-byte
-    aligned."""
+    aligned. ``invalid_aligned``: every shard's invalid words start on 16
+    bytes (the int4 loads of :func:`~.or_popcount.or_popcount_shards`)."""
 
     def __init__(self, edge_src, edge_dst, edge_dst_epoch, node_epoch, invalid):
         self.shards = tuple(
@@ -277,6 +278,7 @@ class ShardTable:
             if s.invalid.shape[0] != self.words:
                 raise ValueError("wave_expand: every shard must have as many invalid words")
         self.width = (self.words + 3) // 4 * 4
+        self.invalid_aligned = all(s.invalid.data_ptr() % 16 == 0 for s in self.shards)
         self.max_edges = max(s.e_cap for s in self.shards)
         self.table = None
         if self.device.type not in ("cpu", "cuda"):
@@ -371,9 +373,9 @@ def _expand_to_fixpoint(frontier_w: torch.Tensor, g: GraphArrays) -> Tuple[int, 
 
 def _gate_and_expand(seed_w: torch.Tensor, g: GraphArrays) -> Tuple[int, int]:
     """Seed gate (already-invalid seeds neither count nor expand) + the
-    expansion. Returns (newly count incl. seeds, depth)."""
-    fresh = seed_w & ~g.invalid
-    _, seeded = or_popcount(fresh, g.invalid, out=g.invalid)
+    expansion; ``seed_w`` is overwritten with the fresh seeds. Returns
+    (newly count incl. seeds, depth)."""
+    _, fresh, seeded = or_popcount_gate(seed_w, g.invalid, out=g.invalid, delta=seed_w)
     count, depth = _expand_to_fixpoint(fresh, g)
     return int(seeded) + count, depth
 
@@ -443,8 +445,7 @@ def run_waves_union_packed(
     frontier_w = pack_bits(seeds_to_frontier(g.n_cap, seed_ids.reshape(-1)))
     or_popcount(frontier_w, g.invalid, out=g.invalid)
     _expand_to_fixpoint(frontier_w, g)
-    newly_w = g.invalid & ~inv_before
-    _, count = or_popcount(g.invalid, inv_before, out=inv_before)  # union finalize
+    newly_w, count = or_popcount_delta(g.invalid, inv_before)  # union finalize
     return g, int(count), newly_w
 
 

@@ -53,7 +53,7 @@ import numpy as np
 import torch
 
 from ..ops.bitops import pack_bits, pack_mask_host, unpack_bits, unpack_words_host
-from ..ops.or_popcount import or_popcount
+from ..ops.or_popcount import or_popcount_shards
 from ..ops.ring_all_gather import ring_all_gather
 from ..ops.wave import ShardTable, wave_expand_shards
 from .mesh import Mesh, graph_mesh
@@ -130,9 +130,9 @@ def build_sharded_wave(mesh: Mesh, n_global: int, exchange: str = "packed"):
     def wave(seed_frontier: torch.Tensor, g: ShardedGraphArrays, stats: Optional[dict] = None):
         table = shard_table(g)
         frontier = _shard_words(seed_frontier, n_dev, n_local, table.width)
-        # every seed merges and conducts; only the fresh ones count
-        fresh = [or_popcount(frontier[d, :table.words], inv, out=inv)[1]
-                 for d, inv in enumerate(g.invalid)]
+        # every seed merges and conducts; only the fresh ones count (one
+        # launch for all shards)
+        _, seeded = or_popcount_shards(frontier, table)
         count = levels = 0
         while True:  # at least one level: an empty frontier lights nothing
             frontier, lit = wave_expand_shards(gather(frontier), table, n_global)
@@ -143,7 +143,7 @@ def build_sharded_wave(mesh: Mesh, n_global: int, exchange: str = "packed"):
             levels += 1
         if stats is not None:
             stats["levels"] = levels
-        return g, int(torch.stack(fresh).sum()) + count
+        return g, int(seeded) + count
 
     def wave_chain(seed_mat: torch.Tensor, g: ShardedGraphArrays, reset_between: bool):
         counts = []

@@ -48,6 +48,125 @@ def test_or_popcount_rejects_misaligned(card):
     x = torch.zeros(9, dtype=torch.int32, device=card)
     with pytest.raises(ValueError, match="aligned"):
         opc.or_popcount(x[1:], x[:8])
+    with pytest.raises(ValueError, match="aligned"):
+        opc.or_popcount_gate(x[:8], x[:8], delta=x[1:])
+    with pytest.raises(ValueError, match="aligned"):
+        opc.or_popcount_delta(x[1:], x[:8])
+
+
+def test_or_popcount_refuses_graph_capture(card):
+    """A launch under CUDA graph capture raises: a replay would run on
+    another stream with the capture stream's count accumulators."""
+    x = torch.zeros(8, dtype=torch.int32, device=card)
+    opc.or_popcount(x, x.clone())  # the kernel is built and loaded outside capture
+    torch.cuda.synchronize()
+    before = opc.launches
+    with pytest.raises(RuntimeError, match="captured"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph()):
+            opc.or_popcount(x, x.clone())
+    assert opc.launches == before
+    _, count = opc.or_popcount(x, torch.full_like(x, -1))  # eager launches still count
+    assert int(count) == 0
+
+
+def _random_words(rng, n, card):
+    return torch.from_numpy(rng.integers(-(2**31), 2**31, size=n, dtype=np.int32)).to(card)
+
+
+@pytest.mark.parametrize("n", [1, 3, 7, 128, 40000, 524289])
+@pytest.mark.parametrize("alias", [False, True])
+def test_or_popcount_forms_match_plain(card, n, alias):
+    """Each form, one launch each, against its plain version; with ``alias``
+    the merge goes into ``old`` and the delta into ``new`` (the dense
+    wave's seed gate), or the delta into ``new`` (the delta form)."""
+    rng = np.random.default_rng(n + alias)
+    new0, old0 = _random_words(rng, n, card), _random_words(rng, n, card)
+    want_m, want_d, want_c = opc.or_popcount_gate_plain(new0.clone(), old0.clone())
+    new, old = new0.clone(), old0.clone()
+    before = dict(opc.form_launches)
+    if alias:
+        got_m, got_d, got_c = opc.or_popcount_gate(new, old, out=old, delta=new)
+        assert got_m.data_ptr() == old.data_ptr() and got_d.data_ptr() == new.data_ptr()
+    else:
+        got_m, got_d, got_c = opc.or_popcount_gate(new, old)
+        assert torch.equal(new, new0) and torch.equal(old, old0)
+    torch.cuda.synchronize()
+    assert torch.equal(got_m, want_m) and torch.equal(got_d, want_d)
+    assert got_c.dtype == torch.int64 and int(got_c) == int(want_c)
+    new, old = new0.clone(), old0.clone()
+    got_d, got_c = opc.or_popcount_delta(new, old, delta=new if alias else None)
+    torch.cuda.synchronize()
+    assert torch.equal(got_d, want_d) and torch.equal(old, old0) and int(got_c) == int(want_c)
+    assert (got_d.data_ptr() == new.data_ptr()) == alias
+    new, old = new0.clone(), old0.clone()
+    got_m, got_c = opc.or_popcount(new, old, out=old if alias else None)
+    torch.cuda.synchronize()
+    assert torch.equal(got_m, want_m) and int(got_c) == int(want_c)
+    assert {k: opc.form_launches[k] - before[k] for k in before} == {
+        "merge": 1, "gate": 1, "delta": 1, "shards": 0}
+
+
+def test_or_popcount_ticket_resets_over_100_calls(card):
+    """100 launches in a row on one stream, forms and sizes mixed, with no
+    sync between them: every count is its own (the last block's ticket is
+    back at 0 for the next launch), and each stays valid after the rest."""
+    rng = np.random.default_rng(3)
+    cases, got = [], []
+    for i in range(100):
+        n = (1, 7, 40000, 524289)[i % 4]
+        new, old = _random_words(rng, n, card), _random_words(rng, n, card)
+        cases.append((new, old))
+        form = i % 3
+        if form == 0:
+            got.append(opc.or_popcount(new, old)[1])
+        elif form == 1:
+            got.append(opc.or_popcount_gate(new, old)[2])
+        else:
+            got.append(opc.or_popcount_delta(new, old)[1])
+    for (new, old), count in zip(cases, got):
+        assert int(count) == int(opc.or_popcount_plain(new, old)[1])
+
+
+def test_or_popcount_counts_past_2_to_the_31(card):
+    """67,108,865 all-ones words over zeros light 2,147,483,680 bits: the
+    int64 count holds it (the TPU kernel's int32 count wraps there)."""
+    n = 67_108_865
+    ones = torch.full((n,), -1, dtype=torch.int32, device=card)
+    zeros = torch.zeros(n, dtype=torch.int32, device=card)
+    want = 32 * n
+    assert want == 2_147_483_680
+    _, count = opc.or_popcount_delta(ones, zeros)
+    assert int(count) == want
+    _, _, count = opc.or_popcount_gate(ones, zeros.clone())
+    assert int(count) == want
+    merged, count = opc.or_popcount(ones, zeros, out=zeros)
+    assert int(count) == want and bool((merged == -1).all())
+
+
+@pytest.mark.parametrize("n_shards, n_local", [(1, 96), (3, 32 * 41), (8, 1_250_016)])
+def test_or_popcount_shards_kernel_matches_per_shard_plain(card, n_shards, n_local):
+    """One launch over every shard of a one-card mesh against the plain
+    per-shard merges; the last case is the 10M mesh's word count (39,064
+    words a shard). Each row's padding past the shard's words holds garbage
+    that must not be read."""
+    rng = np.random.default_rng(n_shards)
+    mesh = graph_mesh(n_shards, device=card)
+    n = n_local * n_shards
+    invalid = rng.random(n) < 0.3
+    sg = ShardedDeviceGraph(np.zeros(1, np.int64), np.zeros(1, np.int64), n, mesh=mesh,
+                            invalid=invalid)
+    table = tw.ShardTable(*sg.g)
+    plain_inv = tuple(x.clone() for x in sg.g.invalid)
+    plain_table = tw.ShardTable(*sg.g._replace(invalid=plain_inv))
+    frontier = _random_words(rng, n_shards * table.width, card).view(n_shards, table.width)
+    before = opc.form_launches["shards"]
+    counts, total = opc.or_popcount_shards(frontier, table)
+    torch.cuda.synchronize()
+    assert opc.form_launches["shards"] == before + 1
+    want_counts, want_total = opc.or_popcount_shards_plain(frontier, plain_table)
+    assert torch.equal(counts, want_counts) and int(total) == int(want_total) > 0
+    for got, want in zip(sg.g.invalid, plain_inv):
+        assert torch.equal(got, want)
 
 
 def _state(n, seed):
