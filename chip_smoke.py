@@ -110,6 +110,19 @@ user calls. Phases, each printing one JSON line:
    ``mesh_lanes_10m_round`` line a round (build s or patch ms, burst ms and
    its gated and apply parts from the backend's wave record, launches,
    levels), the last burst profiled;
+10d. ``write_10m`` — on the same stack after ``mesh_lanes_10m``, the write
+   path (:func:`phase_write`): the live twin's snapshot of the 10M graph
+   loaded on the card with equal arrays and union waves; two hosts and one
+   sqlite operation log; host A's 512 commands replayed by host B's reader
+   as ONE lane burst, exact against ``cascade_rows_lanes`` from the same
+   state, every written row read back; the next 512 by a reader with
+   ``mesh=`` as ONE mesh burst, equal lane by lane to the single-card burst
+   (profiled), its host ms split by part; two local writes' host-led
+   cascades (a mid-sized and a graph-wide closure), each equal to the dense
+   wave; a ``HubCheckpoint`` resume that invalidates exactly the rows
+   written after the snapshot; one ``write_10m_*`` line a step (commit
+   p50/p99, ``read_new`` split, burst device ms and idle share, snapshot
+   seconds and bytes, peak memory);
 11. ``kernels`` — every kernel form against its plain PyTorch version on the
    card, exact: ``or_popcount``'s four forms (merge, gate, delta at n = 7,
    128, 40,000 and 524,289 words, aliased as the main path calls them, and
@@ -1376,7 +1389,8 @@ def _restore_live_state(backend, table, st: dict) -> None:
     backend._pending[:] = st["pending"]
 
 
-def phase_live(device, card: str, level: dict, paths: dict, reset_counts, read_counts) -> dict:
+def phase_live(device, card: str, level: dict, paths: dict, reset_counts, read_counts,
+               snapshot_path: str) -> dict:
     """The twin of ``perf/live_path.py``'s blocking loop
     (``stl_fusion_tpu_torch/live_path.py``) at 10M rows, on
     ``power_law_10m``'s edge arrays, through the public API: a table-backed
@@ -1415,7 +1429,9 @@ def phase_live(device, card: str, level: dict, paths: dict, reset_counts, read_c
     ``paths`` receives the launch counts of the blocking loop (``live``,
     read just before the super-round loop starts) and of the two
     nonblocking loops (``live_sr``, counted from 0 at the super-round
-    loop's start and read at the chain loop's end)."""
+    loop's start and read at the chain loop's end). The twin's restore leg
+    leaves its snapshot of the graph at ``snapshot_path`` for
+    :func:`phase_write`."""
     import numpy as np
     import torch
 
@@ -1629,6 +1645,7 @@ def phase_live(device, card: str, level: dict, paths: dict, reset_counts, read_c
                 self.mesh_last = {"pg": pg, "groups": group_ids, "blocked_pre": blocked}
 
         def after_loop(self, ctx):
+            self.ctx = ctx  # the live stack, for write_10m
             table = ctx["table"]
             out["n_cap"] = ctx["backend"].graph.n_cap
             gen = torch.Generator(device=device).manual_seed(GRAPH_SEED)
@@ -1735,7 +1752,7 @@ def phase_live(device, card: str, level: dict, paths: dict, reset_counts, read_c
     checks.loop_i = 0
     rec = run_live(n_nodes=n, edges=(src, dst), device=device, observer=checks,
                    loops=[("blocking", r, mesh_burst) if name == "mesh" else (name, r)
-                          for name, r in LIVE_LOOPS])
+                          for name, r in LIVE_LOOPS], snapshot_path=snapshot_path)
     blocking, sr, chain, mesh_loop = rec["loops"]
     for r, extra in zip(blocking["rounds"], rounds):
         r.update(extra)
@@ -1748,6 +1765,9 @@ def phase_live(device, card: str, level: dict, paths: dict, reset_counts, read_c
     out["live_sr"] = phase_live_sr(card, rec, sr, chain, blocking, checks, out)
     out["mesh_lanes"] = phase_mesh_lanes(card, mesh_loop, checks, out)
     out["mesh_last"] = checks.mesh_last
+    out["ctx"], out["mesh"] = checks.ctx, mesh
+    out["snapshot"] = {"path": snapshot_path, "save_s": rec["snapshot_save_s"],
+                       "load_s": rec["restore_s"], "bytes": rec["snapshot_bytes"]}
     return out
 
 
@@ -1862,6 +1882,581 @@ def phase_live_sr(card: str, rec: dict, sr: dict, chain: dict, blocking: dict, c
     return out
 
 
+WRITE_SEED = 11
+WRITE_GROUPS = 512  # the live twin's lane shape: 512 groups of 8 seed rows
+WRITE_SEEDS = 8
+WRITE_RESUME_OPS = 64
+
+
+def phase_write(device, card: str, live: dict, level: dict) -> dict:
+    """``write_10m``: the write path on the live stack :func:`phase_live`
+    built (the 10M-row ``DagTable`` block, its topo mirror and packed mesh
+    mirror), through the entry points a user calls. Two hosts share one
+    ``SqliteOperationLog`` in a temporary directory: host B is the live
+    stack's hub and backend, host A a second ``FusionHub`` in this process
+    with no graph backend. Both register one command service whose
+    ``RowsSet(rows, value)`` handler writes ``base[rows] = value`` into the
+    store both hosts' tables load from (the host array and its device
+    copy) and, in invalidating mode, reads ``dag.node(r)`` for each row.
+
+    1. ``load_graph`` on the card of the snapshot the live twin's restore
+       leg saved with ``save_graph`` (the graph as the loops left it; the
+       10M graph is saved once a run): equal counts and host arrays (the
+       invalid set included), and ``power_law_10m``'s 100,000-seed union
+       wave on the restored graph, cleared, equal to the same wave on the
+       original, cleared (not empty).
+    2. Host B reads the 4,096 seed rows of 512 groups of 8 (drawn as the
+       live twin draws its lane groups) by scalar reads, so each is a live
+       node; host A commits 512 ``RowsSet`` operations through its
+       commander, each journaled by the log's persist listener; host B's
+       ``read_new()`` replays the 512 as ONE ``invalidate_cascade_batch_lanes``
+       burst of 512 lanes (``topo_sweep`` and ``lane_finish``, no
+       ``wave_expand``), held exactly against ``cascade_rows_lanes`` on the
+       same row groups from the same state (lane counts, dense words,
+       union, stale rows); every written row then reads back its last
+       value by scalar read and by ``read_batch`` of CUDA ids.
+    3. A second reader on host B with ``mesh=`` the 8-shard mesh replays the
+       next 512 operations as ONE ``invalidate_cascade_batch_lanes_sharded``
+       burst (``packed_pull`` and ``lane_finish``, no ``topo_sweep``), each
+       lane's count equal to the single-card burst of the same groups from
+       the same state (that burst profiled: its device ms and idle share).
+       The mesh burst's host ms is split: the flush, the packed mirror's
+       check or patch, the blocked mask's re-sync, the gated wave and the
+       union's apply (the backend's wave record).
+    4. Two local ``hub_b.commander.call``s cascade host-led on the card (the
+       rows' table invalidation expands at the next flush): one of the step-2
+       group whose closure is nearest 10^4 rows, one of 8 rows drawn as the
+       lane groups are (a closure of most of the graph). Each newly invalid
+       set equals the dense wave's from the same rows and is larger than the
+       rows written; host B reads each write back at once, and host A's
+       reader sees the two as external operations.
+    5. ``HubCheckpoint`` of host B (its live scalar nodes and the 10M-row
+       memo table) restored into a fresh hub with no graph backend (its
+       table on the card): its reader starts at the snapshot's position,
+       host A commits 64 more operations, exactly their rows go stale
+       there, and every other row reads warm with no load call.
+
+    The reference bursts and the original graph's wave are checks: their
+    launches are rolled back. One ``write_10m_*`` line a step and a
+    summary, each with the card's name and power limit."""
+    return asyncio.run(_write_10m(device, card, live, level))
+
+
+async def _write_10m(device, card: str, live: dict, level: dict) -> dict:
+    import contextlib
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from stl_fusion_tpu_torch import core
+    from stl_fusion_tpu_torch.checkpoint import HubCheckpoint, load_graph
+    from stl_fusion_tpu_torch.oplog import (
+        OperationLogReader,
+        SqliteOperationLog,
+        attach_operation_log,
+    )
+    from stl_fusion_tpu_torch.ops import block_refresh as brf
+    from stl_fusion_tpu_torch.ops import or_popcount as opc
+    from stl_fusion_tpu_torch.ops import packed_pull as ppp
+    from stl_fusion_tpu_torch.ops import topo_wave as tpw
+    from stl_fusion_tpu_torch.ops import wave as wave_mod
+    from stl_fusion_tpu_torch.utils.serialization import wire_type
+
+    ctx, mesh = live["ctx"], live["mesh"]
+    backend, block, table, svc_b = ctx["backend"], ctx["block"], ctx["table"], ctx["svc"]
+    hub_b, dg, n = backend.hub, backend.graph, ctx["n"]
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(WRITE_SEED)
+    out = {"phase": "write_10m", "card": card, "groups": WRITE_GROUPS, "seeds": WRITE_SEEDS}
+
+    def fail(what):
+        raise AssertionError(f"write_10m: {what}")
+
+    def counters():
+        return (tpw.launches, tpw.lane_finish_launches, brf.launches, ppp.launches,
+                ppp.early_exits, wave_mod.launches, dict(wave_mod.form_launches), opc.launches,
+                dict(opc.form_launches))
+
+    def roll_back(saved):
+        (tpw.launches, tpw.lane_finish_launches, brf.launches, ppp.launches, ppp.early_exits,
+         wave_mod.launches, wave_forms, opc.launches, opc_forms) = saved
+        wave_mod.form_launches.update(wave_forms)
+        opc.form_launches.update(opc_forms)
+
+    @contextlib.contextmanager
+    def timed(split, key, obj, name):
+        """Adds the ms of each call of ``obj.name`` to ``split[key]``, the
+        card synced before and after it (``obj`` None times nothing)."""
+        if obj is None:
+            yield
+            return
+        fn, own = getattr(obj, name), name in vars(obj)
+
+        def run(*args, **kwargs):
+            sync(device)
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                sync(device)
+                split[key] = split.get(key, 0.0) + (time.perf_counter() - t) * 1e3
+
+        setattr(obj, name, run)
+        try:
+            yield
+        finally:
+            if own:
+                setattr(obj, name, fn)
+            else:
+                delattr(obj, name)
+
+    def last_wave(kind):
+        """The backend's newest wave record of ``kind``: the device wave's
+        ms (``device_ms``: the gated lanes, their counts read back) and the
+        union's apply to the hub and tables (``apply_ms``)."""
+        return [w for w in backend.profiler.recent() if w["kind"] == kind][-1]
+
+    def burst_split(b, wave):
+        """A mesh burst's host ms by part; ``other`` is the rest (the seed
+        lists' lookups, the wave's bookkeeping)."""
+        sp = b["split"]
+        parts = {"flush": sp.get("flush", 0.0),
+                 "mirror_check_or_patch": sp.get("mirror", 0.0) - sp.get("flush", 0.0),
+                 "blocked_resync": sp.get("resync", 0.0),
+                 "gated_wave": wave["device_ms"], "apply": wave["apply_ms"]}
+        parts["other"] = b["s"] * 1e3 - sum(parts.values())
+        return parts
+
+    @wire_type("RowsSet")
+    @dataclasses.dataclass(frozen=True)
+    class RowsSet:
+        rows: tuple
+        value: float
+
+    base = svc_b.base  # the shared store: the host array and its device copy
+    base_dev = svc_b.load_dev_args()[0]
+
+    class RowsService:
+        """The command service; its handler is registered for ``RowsSet``
+        explicitly (this module's annotations are strings)."""
+
+        def __init__(self, dag):
+            self.dag = dag
+
+        async def rows_set(self, command):
+            if core.is_invalidating():
+                for r in command.rows:
+                    await self.dag.node(int(r))
+                return
+            rows = np.asarray(command.rows, np.int64)
+            base[rows] = command.value
+            base_dev[torch.from_numpy(rows).to(base_dev.device)] = command.value
+
+    dag_type = type(svc_b)
+    loads = {"rows": 0}  # rows the second hosts' tables load on the host
+
+    def host():
+        hub = core.FusionHub()
+        dag = dag_type(hub)
+        dag.base, dag._base_dev = base, base_dev
+        load = dag.load
+
+        def counted(ids):
+            loads["rows"] += len(ids)
+            return load(ids)
+
+        dag.load = counted
+        hub.add_service(dag, "dag")
+        cmd = hub.add_service(RowsService(dag))
+        hub.commander.add_handler(cmd.rows_set, command_type=RowsSet)
+        return hub, dag
+
+    cmd_b = hub_b.add_service(RowsService(svc_b))
+    hub_b.commander.add_handler(cmd_b.rows_set, command_type=RowsSet)
+    hub_a, _ = host()
+    tmp = tempfile.mkdtemp(prefix="fusion-write-")
+    log = SqliteOperationLog(os.path.join(tmp, "ops.sqlite"))
+    want_value = {}
+    bursts = []
+    orig_lanes = backend.invalidate_cascade_batch_lanes
+    orig_sharded = backend.invalidate_cascade_batch_lanes_sharded
+
+    def lanes(groups):
+        t = time.perf_counter()
+        counts = orig_lanes(groups)
+        bursts.append({"kind": "lanes", "groups": groups, "counts": counts,
+                       "s": time.perf_counter() - t})
+        return counts
+
+    def sharded(groups, mesh=None):
+        """The mesh burst, its parts timed with the card synced around each:
+        the flush and the packed mirror's check or patch (``packed_mirror``),
+        the blocked mask's re-sync from the dense state."""
+        split = {}
+        entry = backend._packed_mirror
+        sync(device)
+        t = time.perf_counter()
+        with timed(split, "mirror", backend, "packed_mirror"), \
+                timed(split, "flush", backend, "flush"), \
+                timed(split, "resync", dg, "invalid_mask"), \
+                timed(split, "resync", entry["graph"] if entry else None, "put_blocked"):
+            counts = orig_sharded(groups, mesh=mesh)
+        bursts.append({"kind": "sharded", "groups": groups, "counts": counts,
+                       "s": time.perf_counter() - t, "split": split})
+        return counts
+
+    backend.invalidate_cascade_batch_lanes = lanes
+    backend.invalidate_cascade_batch_lanes_sharded = sharded
+    try:
+        reader_a = attach_operation_log(hub_a.commander, log, start_reader=False)
+        reader_b = attach_operation_log(hub_b.commander, log, start_reader=False)
+
+        def draw(k):
+            return [rng.choice(n // 10, size=WRITE_SEEDS, replace=False) for _ in range(k)]
+
+        def settle():
+            """Every row valid and every invalid bit clear: the block's
+            refresh takes the rows whose bit is set; a scalar read clears its
+            row's bit without refreshing the row, and a recompute that
+            displaces a node a wave left pending invalidates its row (which
+            cascades at the flush), so ``read_batch`` takes what is left."""
+            for _ in range(3):
+                backend.flush()
+                backend.refresh_block_on_device(block)
+                backend.flush()
+                stale = np.nonzero(table._stale_host)[0]
+                if stale.size:
+                    table.read_batch(stale)
+                    backend.flush()
+                if not table.stale_count() and not dg._h_invalid[:n].any():
+                    return
+            fail(f"{table.stale_count()} rows stale and {int(dg._h_invalid[:n].sum())} "
+                 f"invalid after settling")
+
+        async def read_rows(groups):
+            """Host B's scalar reads of the groups' rows, then :func:`settle`.
+            Returns the nodes: the registry holds them weakly, and each must
+            stay live for its replay."""
+            nodes = [await core.capture(lambda: svc_b.node(r))
+                     for r in np.unique(np.concatenate(groups)).tolist()]
+            settle()
+            return nodes
+
+        async def commit(groups, first_value):
+            ms = []
+            for i, rows in enumerate(groups):
+                value = float(first_value + i)
+                t = time.perf_counter()
+                await hub_a.commander.call(RowsSet(tuple(int(r) for r in rows), value))
+                ms.append((time.perf_counter() - t) * 1e3)
+                want_value.update(dict.fromkeys(rows.tolist(), value))
+            return ms
+
+        async def read_back(rows, hub_svc, where):
+            rows = np.unique(np.asarray(rows, np.int64))
+            want = np.asarray([want_value[r] for r in rows.tolist()], np.float32)
+            scalar = np.asarray([await hub_svc.node(r) for r in rows.tolist()], np.float32)
+            t = core.memo_table_of(hub_svc.node)
+            batch = t.read_batch(torch.from_numpy(rows).to(device)).cpu().numpy()
+            if not (np.array_equal(scalar, want) and np.array_equal(batch, want)):
+                fail(f"{where}: a written row does not read back its value")
+            return int(rows.size)
+
+        def check_against(s1, s2, want_counts, got_counts, what):
+            """The checked step's state ``s1`` and counts against the
+            reference's ``s2`` and counts, run from the same state."""
+            diffs = [name for name, same in (
+                ("counts", np.array_equal(got_counts, want_counts)),
+                ("invalid words", torch.equal(s1["words"], s2["words"])),
+                ("union", np.array_equal(s1["h_invalid"], s2["h_invalid"])),
+                ("stale rows", np.array_equal(s1["stale"], s2["stale"])),
+            ) if not same]
+            if diffs or int(np.sum(got_counts)) == 0:
+                fail(f"{what} differs in {diffs} (newly {int(np.sum(got_counts))}, "
+                     f"reference {int(np.sum(want_counts))})")
+
+        def in_reference(s0, run):
+            """``run()`` from the state ``s0``, its launches rolled back,
+            then the state after the checked step put back."""
+            s1 = _live_state(backend, table)
+            saved = counters()
+            journal, backend._journal = backend._journal, []
+            _restore_live_state(backend, table, s0)
+            res = run()
+            check = _live_state(backend, table)
+            roll_back(saved)
+            _restore_live_state(backend, table, s1)
+            backend._journal = journal + backend._journal
+            return s1, check, res
+
+        # ---- 1. the durable restart of the graph: the live twin's restore
+        # leg saved the 10M graph as the loops left it, and nothing has
+        # changed it since; that snapshot loads on the card and holds the
+        # same arrays (the invalid set too) and, both cleared, the same
+        # union wave as the live graph
+        snapshot = live["snapshot"]
+        t = time.perf_counter()
+        g2 = load_graph(snapshot["path"], device=device)
+        load_s = time.perf_counter() - t
+        m = dg.n_edges
+        if (g2.n_nodes, g2.n_edges) != (dg.n_nodes, m) or not all(
+                np.array_equal(getattr(g2, a)[:k], getattr(dg, a)[:k]) for a, k in (
+                    ("_h_edge_src", m), ("_h_edge_dst", m), ("_h_edge_dst_epoch", m),
+                    ("_h_node_epoch", n), ("_h_invalid", n))):
+            fail("the restored graph's counts or host arrays differ from the original's")
+        seeds = (block.base + level["seeds"]).astype(np.int64).tolist()
+        s0 = _live_state(backend, table)
+
+        def cleared_union():
+            dg.clear_invalid()
+            return dg.run_waves_union([seeds], mirror="off")
+
+        _, _, want_wave = in_reference(s0, cleared_union)
+        g2.clear_invalid()
+        t = time.perf_counter()
+        got_wave = g2.run_waves_union([seeds], mirror="off")
+        sync(device)
+        wave_ms = (time.perf_counter() - t) * 1e3
+        if not want_wave[0] or got_wave[0] != want_wave[0] or not np.array_equal(
+                got_wave[1], want_wave[1]):
+            fail(f"the restored graph's union wave ({got_wave[0]}) differs from the "
+                 f"original's ({want_wave[0]})")
+        del g2
+        graph_bytes = os.path.getsize(snapshot["path"])
+        os.remove(snapshot["path"])
+
+        # ---- 2. the batch replay: one lane burst of 512
+        groups1 = draw(WRITE_GROUPS)
+        live_nodes = await read_rows(groups1)
+        commit_ms = await commit(groups1, 1_000_000)
+        if log.last_index() != WRITE_GROUPS:
+            fail(f"the log holds {log.last_index()} records after {WRITE_GROUPS} commits")
+        s0 = _live_state(backend, table)
+        c0 = counters()
+        sync(device)
+        t = time.perf_counter()
+        handled = await reader_b.read_new()
+        sync(device)
+        read_ms = (time.perf_counter() - t) * 1e3
+        c1 = counters()
+        launches = {"topo_sweep": c1[0] - c0[0], "lane_finish": c1[1] - c0[1],
+                    "wave_expand": c1[5] - c0[5], "packed_pull": c1[3] - c0[3]}
+        if handled != WRITE_GROUPS or [b["kind"] for b in bursts] != ["lanes"]:
+            fail(f"read_new handled {handled} in bursts {[b['kind'] for b in bursts]}")
+        burst = bursts[0]
+        wave1 = last_wave("lanes")
+        if [len(g) for g in burst["groups"]] != [WRITE_SEEDS] * WRITE_GROUPS:
+            fail(f"the replay collected groups of {sorted(set(len(g) for g in burst['groups']))} nodes, not one group of 8 live nodes an operation")
+        if cuda and (launches["topo_sweep"] <= 0 or launches["lane_finish"] <= 0
+                     or launches["wave_expand"] or launches["packed_pull"]):
+            fail(f"the batch burst launched {launches}")
+        s1, s2, want = in_reference(
+            s0, lambda: backend.cascade_rows_lanes(block, [g.tolist() for g in groups1]))
+        check_against(s1, s2, want, burst["counts"], "the batch replay")
+        union1 = int(s1["h_invalid"][:n].sum())
+        readback = await read_back(np.concatenate(groups1), svc_b, "batch replay")
+        batch = {"phase": "write_10m_batch", "card": card, "operations": handled,
+                 "read_new_ms": read_ms, "burst_ms": burst["s"] * 1e3,
+                 "replay_ms": read_ms - burst["s"] * 1e3,
+                 "burst_split_ms": {"wave": wave1["device_ms"], "apply": wave1["apply_ms"]},
+                 "launches": launches,
+                 "newly": int(burst["counts"].sum()), "union": union1,
+                 "lane_counts_min_max": [int(burst["counts"].min()), int(burst["counts"].max())],
+                 "exact_vs_cascade_rows_lanes": True, "rows_read_back": readback}
+        emit(batch)
+        commit1 = {"phase": "write_10m_commit", "card": card, "commands": len(commit_ms),
+                   "p50_ms": float(np.percentile(commit_ms, 50)),
+                   "p99_ms": float(np.percentile(commit_ms, 99)),
+                   "mean_ms": float(np.mean(commit_ms))}
+        emit(commit1)
+
+        # ---- 3. the mesh reader: one sharded lane burst of the next 512
+        groups2 = draw(WRITE_GROUPS)
+        live_nodes = await read_rows(groups2)
+        await commit(groups2, 2_000_000)
+        mesh_reader = OperationLogReader(log, hub_b.commander.operations,
+                                         start_position=reader_b.watermark, mesh=mesh)
+        s0 = _live_state(backend, table)
+        entry0 = backend._packed_mirror
+        patches0 = entry0["graph"].patches
+        c0 = counters()
+        sync(device)
+        t = time.perf_counter()
+        handled = await mesh_reader.read_new()
+        sync(device)
+        mesh_ms = (time.perf_counter() - t) * 1e3
+        c1 = counters()
+        wave2 = last_wave("sharded_lanes")
+        entry1 = backend._packed_mirror
+        mirror_kind = ("build" if entry1 is not entry0 else
+                       "patch" if entry1["graph"].patches > patches0 else "as built")
+        mlaunches = {"packed_pull": c1[3] - c0[3], "lane_finish": c1[1] - c0[1],
+                     "topo_sweep": c1[0] - c0[0], "wave_expand": c1[5] - c0[5]}
+        if handled != WRITE_GROUPS or [b["kind"] for b in bursts] != ["lanes", "sharded"]:
+            fail(f"the mesh reader handled {handled} in bursts {[b['kind'] for b in bursts]}")
+        mburst = bursts[1]
+        if cuda and (mlaunches["packed_pull"] <= 0 or mlaunches["lane_finish"] <= 0
+                     or mlaunches["topo_sweep"] or mlaunches["wave_expand"]):
+            fail(f"the mesh burst launched {mlaunches}")
+
+        prof = {}
+
+        def single_card():
+            if not cuda:
+                return orig_lanes(mburst["groups"])
+            wall, by_name, calls = profile_device(device, lambda: prof.update(
+                counts=orig_lanes(mburst["groups"])))
+            dev_ms = sum(v["ms"] for v in by_name.values())
+            prof.update(wall_ms=wall, device_ms=dev_ms, idle_share=1 - dev_ms / wall,
+                        device_calls=calls,
+                        topo_sweep=kernel_calls(by_name, SYMBOLS["topo_sweep"]),
+                        lane_finish=kernel_calls(by_name, SYMBOLS["lane_finish"]))
+            return prof["counts"]
+
+        s1, s2, want = in_reference(s0, single_card)
+        check_against(s1, s2, want, mburst["counts"], "the mesh reader's burst")
+        prof.pop("counts", None)
+        readback2 = await read_back(np.concatenate(groups2), svc_b, "mesh replay")
+        n_bursts = len(bursts)
+        if await reader_b.read_new() != WRITE_GROUPS or len(bursts) != n_bursts:
+            fail("the first reader replayed operations the mesh reader had applied")
+        meshrec = {"phase": "write_10m_mesh", "card": card, "operations": handled,
+                   "read_new_ms": mesh_ms, "burst_ms": mburst["s"] * 1e3,
+                   "replay_ms": mesh_ms - mburst["s"] * 1e3,
+                   "burst_split_ms": burst_split(mburst, wave2),
+                   "packed_mirror": mirror_kind, "launches": mlaunches,
+                   "newly": int(mburst["counts"].sum()), "shards": N_SHARDS,
+                   "exact_vs_single_card": True, "rows_read_back": readback2,
+                   "single_card_burst_profile": prof}
+        emit(meshrec)
+
+        # ---- 4. local writes: host-led cascades on the card, each from a
+        # settled state, the newly invalid set equal to the dense wave's.
+        # "mid": the step-1 group whose closure (its lane count there, from
+        # a settled state) is nearest 10^4 rows, a write of typical reach;
+        # "hub": 8 rows drawn as the lane groups are, whose closure spans
+        # most of the graph
+        near = int(np.argmin(np.abs(np.log(np.maximum(burst["counts"], 1)) - np.log(1e4))))
+        local = {}
+        for name, rows_local in (("mid", groups1[near]), ("hub", draw(1)[0])):
+            live_nodes = await read_rows([rows_local])
+            s0 = _live_state(backend, table)
+            inv0 = backend.device_invalidations
+            value = 3_000_000.0 + len(local)
+            sync(device)
+            t = time.perf_counter()
+            await hub_b.commander.call(RowsSet(tuple(int(r) for r in rows_local), value))
+            call_ms = (time.perf_counter() - t) * 1e3
+            backend.flush()
+            sync(device)
+            local_ms = (time.perf_counter() - t) * 1e3
+            want_value.update(dict.fromkeys(rows_local.tolist(), value))
+            nids = (block.base + rows_local).astype(np.int64)
+            s1, s2, dense = in_reference(
+                s0, lambda: dg.run_waves_union([nids.tolist()], mirror="off"))
+            newly = int((s1["h_invalid"] & ~s0["h_invalid"]).sum())
+            dev_inv = backend.device_invalidations - inv0
+            if newly != dense[0] or not np.array_equal(s1["h_invalid"], s2["h_invalid"]):
+                fail(f"the {name} local write invalidated {newly}, the dense wave {dense[0]}")
+            if newly <= len(rows_local) or dev_inv <= 0:
+                fail(f"the {name} local write did not cascade on the card: {newly} newly from "
+                     f"{len(rows_local)} rows, {dev_inv} device invalidations")
+            await read_back(rows_local, svc_b, f"{name} local write")
+            local[name] = {"phase": "write_10m_local", "card": card, "rows": name,
+                           "call_ms": call_ms, "to_invalidated_ms": local_ms, "newly": newly,
+                           "dense_count": dense[0], "device_invalidations": dev_inv,
+                           "step1_lane_count": int(burst["counts"][near]) if name == "mid"
+                           else None}
+        seen = await reader_a.read_new()
+        if seen != len(local) or reader_a.external_seen != len(local):
+            fail(f"host A's reader saw {seen} operations ({reader_a.external_seen} external)")
+        for rec in local.values():
+            emit({**rec, "host_a_external": reader_a.external_seen})
+        # ---- 5. the hub's restart: the rows of both batches live as scalar
+        # nodes, every row valid, the reader at the log's end
+        live_nodes = await read_rows(groups1 + groups2)
+        await reader_b.read_new()
+        ckpt = os.path.join(tmp, "hub.ckpt")
+        t = time.perf_counter()
+        snap = HubCheckpoint.save(hub_b, ckpt, reader_b.watermark, log_store=log)
+        ckpt_save_s = time.perf_counter() - t
+        hub_c, dag_c = host()
+        t = time.perf_counter()
+        res = HubCheckpoint.restore(hub_c, ckpt)
+        ckpt_restore_s = time.perf_counter() - t
+        table_c = core.memo_table_of(dag_c.node)
+        if res.count != len(snap["nodes"]) or res.tables != 1 or table_c.stale_count() != 0:
+            fail(f"the restore brought {res.count} of {len(snap['nodes'])} nodes, "
+                 f"{res.tables} tables, {table_c.stale_count()} stale rows")
+        if res.watermark != log.last_index():
+            fail(f"the snapshot's position {res.watermark} is not the log's {log.last_index()}")
+        reader_c = attach_operation_log(hub_c.commander, log, start_reader=False,
+                                        start_position=res.watermark)
+        groups3 = draw(WRITE_RESUME_OPS)
+        await commit(groups3, 4_000_000)
+        if await reader_c.read_new() != WRITE_RESUME_OPS:
+            fail("the restored hub's reader did not replay the operations after the snapshot")
+        rows3 = np.unique(np.concatenate(groups3))
+        if not np.array_equal(np.nonzero(table_c._stale_host)[0], rows3):
+            fail(f"{table_c.stale_count()} rows went stale after the resume, "
+                 f"{rows3.size} were written")
+        by_row = {int(c.input.args[0]): c for c in res.computeds}
+        for r, c in by_row.items():
+            if c.is_consistent == (r in set(rows3.tolist())):
+                fail(f"restored node {r} is {'consistent' if c.is_consistent else 'invalid'}")
+        # the written rows read back their values (a read_batch refreshes
+        # every stale row: these, through the host loader), then nothing
+        # else loads
+        loads["rows"] = 0
+        await read_back(rows3, dag_c, "resumed hub")
+        resumed_loads = loads["rows"]
+        warm = np.setdiff1d(rng.choice(n, size=min(100_000, n), replace=False), rows3)
+        loads["rows"] = 0
+        got = table_c.read_batch(torch.from_numpy(warm).to(device)).cpu().numpy()
+        warm_nodes = [r for r in by_row if r not in set(rows3.tolist())][:256]
+        for r in warm_nodes:
+            if await core.capture(lambda: dag_c.node(r)) is not by_row[r]:
+                fail(f"restored row {r} recomputed")
+        if loads["rows"] or not np.array_equal(got, base[warm]):
+            fail(f"warm rows loaded {loads['rows']} rows or read wrong values")
+        if resumed_loads != rows3.size:
+            fail(f"the resumed hub loaded {resumed_loads} rows for {rows3.size} written")
+        restart = {"phase": "write_10m_restart", "card": card,
+                   "save_graph_s": snapshot["save_s"], "save_graph_by": "the live twin's leg",
+                   "load_graph_s": load_s, "leg_load_graph_s": snapshot["load_s"],
+                   "graph_bytes": graph_bytes, "restored_union_wave_ms": wave_ms,
+                   "union_newly": int(want_wave[0]),
+                   "hub_checkpoint_save_s": ckpt_save_s,
+                   "hub_checkpoint_restore_s": ckpt_restore_s,
+                   "hub_checkpoint_bytes": os.path.getsize(ckpt),
+                   "restored_nodes": res.count, "restored_tables": res.tables,
+                   "resume_operations": WRITE_RESUME_OPS, "resume_stale_rows": int(rows3.size),
+                   "resume_rows_loaded": resumed_loads, "warm_rows_checked": int(warm.size), "warm_nodes_checked": len(warm_nodes),
+                   "fresh_hub_backend": "none", "fresh_hub_table_device": str(table_c.device)}
+        emit(restart)
+    finally:
+        del backend.invalidate_cascade_batch_lanes
+        del backend.invalidate_cascade_batch_lanes_sharded
+        log.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out.update(commit_p50_ms=commit1["p50_ms"], commit_p99_ms=commit1["p99_ms"],
+               read_new_ms=batch["read_new_ms"], replay_ms=batch["replay_ms"],
+               burst_ms=batch["burst_ms"], mesh_read_new_ms=meshrec["read_new_ms"],
+               mesh_burst_ms=meshrec["burst_ms"],
+               local_write_ms={k: v["to_invalidated_ms"] for k, v in local.items()},
+               local_newly={k: v["newly"] for k, v in local.items()},
+               burst_profile=prof, save_graph_s=snapshot["save_s"], load_graph_s=load_s,
+               graph_bytes=restart["graph_bytes"], hub_checkpoint_save_s=ckpt_save_s,
+               hub_checkpoint_restore_s=ckpt_restore_s,
+               hub_checkpoint_bytes=restart["hub_checkpoint_bytes"],
+               max_memory_allocated=torch.cuda.max_memory_allocated() if cuda else None)
+    emit(out)
+    return out
+
+
 def sweep_bytes(graph, words: int, start_level: int, seeded: bool, levels=None) -> int:
     """Bytes a sweep (or the ``levels`` range of one) must move: each
     gathered row's in_src and edge_epoch rows and epoch, each row's
@@ -1916,31 +2511,41 @@ def kernel_calls(by_name: dict, symbol: str) -> tuple:
     return sum(v["ms"] for v in hits), sum(v["calls"] for v in hits)
 
 
-def profile_checked(device, fn, want: dict, what: str) -> tuple:
+def profile_checked(device, fn, want: dict, what: str, lost_ok: bool = False) -> tuple:
     """``profile_device(fn)`` that must show some launches of each kernel
     form and at most ``want[form]``, the launches the wrappers counted: the
-    trace drops some kernel records once a process has run several
-    profiler sessions (seen on the card: 80-81 of a sweep's 85 launches,
-    17 of 20 ``or_popcount`` launches). Returns (wall ms, by_name, device
-    calls, {form: (device ms per launch over the launches shown, launches
+    trace drops some kernel records late in a long process (seen on the
+    card: 80-81 of a sweep's 85 launches, 5 of 20 ``or_popcount``
+    launches, all 20 of one form twice in a row; quiet host time around
+    the profiled calls did not help). A profile that shows
+    no launch of a form the wrappers launched is made again, up to three
+    times, and said so; after that it raises, unless ``lost_ok``, when the
+    form's entry in the result shows 0 launches. More launches than the
+    wrappers counted always raise. Returns (wall ms, by_name, device calls,
+    {form: (device ms per launch over the launches shown, launches
     shown)})."""
-    for attempt in (1, 2):
+    attempts = 3
+    for attempt in range(1, attempts + 1):
         wall_ms, by_name, calls = profile_device(device, fn)
-        seen, bad = {}, []
+        seen, over, lost = {}, [], []
         for form, n in want.items():
             ms, got = kernel_calls(by_name, SYMBOLS[form])
-            if not (got == n == 0 or 0 < got <= n):
-                bad.append(f"{what}: the profile shows {got} launches of {form}, the "
-                           f"wrappers made {n}")
+            if got > n:
+                over.append(form)
+            elif got == 0 < n:
+                lost.append(form)
             seen[form] = (ms / got if got else 0.0, got)
-        if not bad:
+        bad = [f"{what}: the profile shows {seen[f][1]} launches of {f}, the wrappers made "
+               f"{want[f]}" for f in over + lost]
+        if over:
+            raise AssertionError("; ".join(bad))
+        if not lost:
             return wall_ms, by_name, calls, seen
-        if attempt == 1 and all(seen[f][1] == 0 for f in want):
-            # a profile that recorded none of the kernels the wrappers
-            # launched: profiled once more, and said so
-            emit({"phase": "profile_retry", "what": what, "reason": bad})
-            continue
-        raise AssertionError("; ".join(bad))
+        emit({"phase": "profile_retry" if attempt < attempts else "profile_lost",
+              "what": what, "attempt": attempt, "reason": bad})
+        if attempt == attempts and not lost_ok:
+            raise AssertionError("; ".join(bad))
+    return wall_ms, by_name, calls, seen
 
 
 #: each kernel form's symbol in the profiler's kernel names
@@ -2743,19 +3348,23 @@ def or_popcount_rows(device, ga, sg, rng, row, check) -> None:
 
 def profiled(device, call, form: str, name: str, reps: int = 20, per_call: int = 1) -> dict:
     """``device_ms`` (``torch.profiler``'s device time of one call of
-    ``form``'s kernel) and ``profiled_launches`` over ``reps`` calls."""
+    ``form``'s kernel) and ``profiled_launches`` over ``reps`` calls;
+    ``device_ms`` is None when three profiles in a row lost every launch."""
     form = form if form in SYMBOLS else form.split(".")[0]
     _, _, _, seen = profile_checked(device, lambda: [call() for _ in range(reps)],
-                                    {form: reps * per_call}, name)
-    return {"device_ms": seen[form][0] * per_call, "profiled_launches": seen[form][1]}
+                                    {form: reps * per_call}, name, lost_ok=True)
+    ms, got = seen[form]
+    return {"device_ms": ms * per_call if got else None, "profiled_launches": got}
 
 
 def phase_kernels(device, main_launches: dict, level: dict, sg, topo: dict, churn: dict,
                   live: dict, packed: dict, card: str) -> dict:
     """Every kernel form against its plain version on the card at the main
     path's shapes, exact, with its time (CUDA events), its device time
-    (``torch.profiler``), the bound for the same work and a PyTorch call
-    computing the same function where there is one. Returns {name: row}."""
+    (``torch.profiler``; the CUDA-event time, marked ``device_ms_by``, where
+    three profiles in a row lost every launch), the bound for the same work
+    and a PyTorch call computing the same function where there is one.
+    Returns {name: row}."""
     import numpy as np
     import torch
 
@@ -2991,6 +3600,8 @@ def phase_kernels(device, main_launches: dict, level: dict, sg, topo: dict, chur
             continue
         call, per_call = r.pop("call"), r.pop("per_call", 1)
         r.update(profiled(device, call, r["form"], r["name"], reps, per_call))
+        if r["device_ms"] is None:  # the trace lost the launches: CUDA events instead
+            r.update(device_ms=r["ms"], device_ms_by="cuda_events")
     emit({"phase": "kernels", "card": card, "kernels": list(rows.values())})
     return rows
 
@@ -3011,17 +3622,21 @@ def main() -> int:
     device = torch.device("cuda")
     dev = phase_device()
     phase_build()
-    # the disk mirror cache in a fresh directory outside the checkout: each
-    # 10M mirror build is a miss and saves, then the phase loads it back
-    cache_dir = tempfile.mkdtemp(prefix="fusion-mirror-cache-")
-    os.environ["FUSION_MIRROR_CACHE"] = cache_dir
+    # a fresh directory outside the checkout for the disk mirror cache (each
+    # 10M mirror build is a miss and saves, then the phase loads it back)
+    # and the live twin's graph snapshot
+    work = tempfile.mkdtemp(prefix="fusion-smoke-")
+    os.environ["FUSION_MIRROR_CACHE"] = os.path.join(work, "mirror-cache")
+    os.makedirs(os.environ["FUSION_MIRROR_CACHE"])
     try:
-        return _main(torch, device, dev, opc_mod, wave_mod, rag_mod, tpw_mod, brf_mod, ppp_mod)
+        return _main(torch, device, dev, work, opc_mod, wave_mod, rag_mod, tpw_mod, brf_mod,
+                     ppp_mod)
     finally:
-        shutil.rmtree(cache_dir, ignore_errors=True)
+        shutil.rmtree(work, ignore_errors=True)
 
 
-def _main(torch, device, dev, opc_mod, wave_mod, rag_mod, tpw_mod, brf_mod, ppp_mod) -> int:
+def _main(torch, device, dev, work, opc_mod, wave_mod, rag_mod, tpw_mod, brf_mod,
+          ppp_mod) -> int:
 
     def counts():
         return {"or_popcount": opc_mod.launches,
@@ -3096,13 +3711,17 @@ def _main(torch, device, dev, opc_mod, wave_mod, rag_mod, tpw_mod, brf_mod, ppp_
     # chain loop's end)
     paths = {}
     reset()
-    live = phase_live(device, dev["nvidia_smi"], level, paths, reset, counts)
+    live = phase_live(device, dev["nvidia_smi"], level, paths, reset, counts,
+                      os.path.join(work, "live-graph.npz"))
     live_kernels = ("topo_sweep", "lane_finish", "block_refresh")
     lived = check("live", paths["live"], live_kernels)
     live_srd = check("live_sr", paths["live_sr"], live_kernels)
     meshd = check("mesh_lanes", paths["mesh_lanes"], ("packed_pull", "lane_finish"))
+    _, writed = drive("write", lambda: phase_write(device, dev["nvidia_smi"], live, level),
+                      ("topo_sweep", "lane_finish", "packed_pull", "block_refresh",
+                       "or_popcount.merge", "or_popcount.delta", "wave_expand_merge"))
     main_launches = {name: sum(p[name] for p in (dense, sharded, mirror, packedd, churned, lived,
-                                                 live_srd, meshd)) for name in dense}
+                                                 live_srd, meshd, writed)) for name in dense}
     kernels = phase_kernels(device, main_launches, level, sg, topo, churn, live, packed,
                             dev["nvidia_smi"])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

@@ -4,9 +4,11 @@ It carries the cascading-invalidation wave end to end on an NVIDIA H100:
 the computed-graph runtime (``core``), the device graph mirror, its topo
 and lat mirrors and its backend (``graph``), the dense bit-packed BFS wave,
 the topo sweep and the lone-wave lat programs (``ops``), the one-card mesh
-and its packed mesh wave (``parallel``) and the twin of ``bench.py``'s
-single-chip and mesh legs (``bench``),
-with hand-written Hopper kernels (``csrc/``). Module names and layout
+and its packed mesh wave (``parallel``), the twin of ``bench.py``'s
+single-chip and mesh legs (``bench``), and the write path: the command
+pipeline (``commands`` + ``operations``), the durable operation log and
+its multi-host reader (``oplog``) and graph and hub snapshots
+(``checkpoint``), with hand-written Hopper kernels (``csrc/``). Module names and layout
 follow the JAX package so each counterpart is easy to find.
 
 Entry points run on the CUDA device unless the caller passes
@@ -14,3 +16,17 @@ Entry points run on the CUDA device unless the caller passes
 """
 
 __version__ = "0.1.0"
+
+from .utils import (  # noqa: F401
+    AsyncEvent,
+    LTag,
+    Result,
+    TestClock,
+    TransientError,
+)
+from .checkpoint import (  # noqa: F401
+    CheckpointManager,
+    HubCheckpoint,
+    load_graph,
+    save_graph,
+)

@@ -3,7 +3,7 @@
 Re-expression of src/Stl.Fusion/FusionBuilder.cs:18-320 +
 Internal/FusionInternalHub.cs, minus the DI container: a hub owns the
 registry, version generator, clocks, timer wheels, the command pipeline
-(a later port slice), and the optional device-graph mirror
+(attached by stl_fusion_tpu_torch.commands), and the optional device-graph mirror
 (attached by stl_fusion_tpu_torch.graph). Services bind to a hub; a process-wide
 default hub serves the common single-hub case.
 
@@ -43,7 +43,7 @@ class FusionHub:
         #: hooks feeding the device CSR mirror + diagnostics
         self.invalidated_hooks: List[Callable] = []
         self.edge_added_hooks: List[Callable] = []
-        self._commander = None  # the command pipeline is a later port slice
+        self._commander = None  # attached lazily by stl_fusion_tpu_torch.commands
         self._graph_backend = None  # attached by stl_fusion_tpu.graph
         self._services: dict = {}
 
@@ -69,10 +69,11 @@ class FusionHub:
     # -- command pipeline --------------------------------------------------
     @property
     def commander(self):
-        raise NotImplementedError(
-            "the command pipeline (commands/) is not ported yet: "
-            "ROADMAP A.6 (write path)"
-        )
+        if self._commander is None:
+            from ..commands.commander import Commander
+
+            self._commander = Commander(self)
+        return self._commander
 
     # -- device graph mirror ----------------------------------------------
     @property

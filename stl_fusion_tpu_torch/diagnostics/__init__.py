@@ -1,13 +1,39 @@
 """Diagnostics the wave path records into: tracing spans and cause ids,
-the flight recorder, the metrics registry and the per-wave profiler.
+the flight recorder, the metrics registry and the per-wave profiler. The
+monitor, auditor, explain, hot keys, invariants, mesh telemetry and SLOs
+are not ported yet (ROADMAP A.8).
 
 ``core.computed`` imports this package at module scope, so nothing here
 may import ``core`` at module scope."""
-from .flight_recorder import RECORDER
-from .metrics import WaveProfiler, global_metrics, next_wave_seq
-from .tracing import CAUSE_PREFIX, current_cause_id, current_span, span_cause_id
+from .flight_recorder import RECORDER, FlightRecorder, global_recorder
+from .metrics import (
+    Counter,
+    Gauge,
+    Histogram,
+    MetricsRegistry,
+    WaveProfiler,
+    global_metrics,
+    next_wave_seq,
+)
+from .tracing import (
+    CAUSE_PREFIX,
+    ActivitySource,
+    Span,
+    add_listener,
+    clear_recent,
+    current_cause_id,
+    current_span,
+    get_activity_source,
+    recent_spans,
+    remove_listener,
+    span_cause_id,
+)
 
 __all__ = [
-    "RECORDER", "WaveProfiler", "global_metrics", "next_wave_seq",
-    "CAUSE_PREFIX", "current_cause_id", "current_span", "span_cause_id",
+    "FlightRecorder", "RECORDER", "global_recorder",
+    "ActivitySource", "Span", "add_listener", "clear_recent", "current_cause_id",
+    "current_span", "get_activity_source", "recent_spans", "remove_listener",
+    "span_cause_id", "CAUSE_PREFIX",
+    "Counter", "Gauge", "Histogram", "MetricsRegistry", "WaveProfiler", "global_metrics",
+    "next_wave_seq",
 ]

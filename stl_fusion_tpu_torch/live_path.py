@@ -83,6 +83,7 @@ CUT = (
     "LIVE_ASYNC asynchronous frontier exchange (routed mesh, ROADMAP A.9)",
     "chain-difference lone-wave estimator and relay-RTT subtraction (no relay)",
     "multi-pass program warms (nothing compiles)",
+    "program_cache_stats of the restore leg (a JAX compile cache; nothing compiles here)",
 )
 #: loop modes: the blocking loop, the super-round loop, the chain loop
 MODES = ("blocking", "superround", "chain")
@@ -99,11 +100,13 @@ class LiveApi(NamedTuple):
     to_device: Callable[[np.ndarray], Any]
     sync: Callable[[], None]
     name: str
+    #: the package's ``checkpoint`` module, for the restore leg
+    checkpoint: Any = None
 
 
 def port_api(device=None) -> LiveApi:
     """This package on ``device`` (``cuda`` unless given)."""
-    from . import core, graph
+    from . import checkpoint, core, graph
 
     dev = resolve_device(device)
 
@@ -113,7 +116,7 @@ def port_api(device=None) -> LiveApi:
 
     return LiveApi(core, graph, {"device": dev},
                    lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev), sync,
-                   f"stl_fusion_tpu_torch on {dev}")
+                   f"stl_fusion_tpu_torch on {dev}", checkpoint)
 
 
 def make_dag_service(core, n: int, to_device):
@@ -161,7 +164,8 @@ def run_live(n_nodes: int = N_NODES, deg: float = 3, rounds: int = 6, lane_group
              lane_seeds: int = 8, edge_churn: int = 2000, scalar_churn: int = 4,
              lat_waves: int = 32, edges=None, device=None, api: Optional[LiveApi] = None,
              observer=None, nonblocking: bool = True, super_rounds: bool = True,
-             fuse_depth: int = 3, loops: Optional[Sequence[tuple]] = None) -> dict:
+             fuse_depth: int = 3, loops: Optional[Sequence[tuple]] = None,
+             snapshot_path: Optional[str] = None) -> dict:
     """Build the live stack once, run its loop and return the record.
     ``nonblocking`` and ``super_rounds`` (``LIVE_NONBLOCKING``,
     ``LIVE_SUPER_ROUNDS``, both on by default as in ``perf/live_path.py``)
@@ -174,6 +178,15 @@ def run_live(n_nodes: int = N_NODES, deg: float = 3, rounds: int = 6, lane_group
     ``("blocking", rounds, burst)``: its bursts are ``burst(backend, block,
     group_ids)``, which returns the per-group counts. ``edges`` (src, dst)
     replaces the generated ``power_law_dag(n_nodes, deg, 7)``.
+
+    After the loops the durable-restart leg runs (``LIVE_RESTORE``, on by
+    default in ``perf/live_path.py``) when ``api`` has a ``checkpoint``
+    module, as :func:`port_api` does: ``save_graph`` of the live device
+    graph to a temporary ``.npz``, then ``load_graph`` of it on the
+    backend's device, timed; the record gains ``snapshot_save_s``,
+    ``restore_s`` and ``snapshot_bytes`` (None without the leg). Given
+    ``snapshot_path``, the leg writes the snapshot there and leaves it, so a
+    caller can load the graph as it stood when the loops ended.
 
     ``observer`` methods, each optional, are called with a context dict
     (``backend``, ``block``, ``table``, ``svc``, ``api``, and in a blocking
@@ -198,7 +211,8 @@ def run_live(n_nodes: int = N_NODES, deg: float = 3, rounds: int = 6, lane_group
         if burst and mode != "blocking":
             raise ValueError(f"only a blocking loop takes a burst, not {mode!r}")
     return asyncio.run(_run(api, n_nodes, deg, lane_groups, lane_seeds, edge_churn,
-                            scalar_churn, lat_waves, edges, observer, fuse_depth, list(loops)))
+                            scalar_churn, lat_waves, edges, observer, fuse_depth, list(loops),
+                            snapshot_path))
 
 
 def _warm_depths(mode: str, rounds: int, fuse_depth: int) -> list:
@@ -210,7 +224,7 @@ def _warm_depths(mode: str, rounds: int, fuse_depth: int) -> list:
 
 
 async def _run(api: LiveApi, n, deg, lane_groups, lane_seeds, edge_churn, scalar_churn,
-               lat_waves, edges, observer, fuse_depth, loops) -> dict:
+               lat_waves, edges, observer, fuse_depth, loops, snapshot_path=None) -> dict:
     core, sync = api.core, api.sync
     rng = np.random.default_rng(LOOP_SEED)
     src, dst = edges if edges is not None else power_law_dag(n, avg_degree=deg,
@@ -376,6 +390,9 @@ async def _run(api: LiveApi, n, deg, lane_groups, lane_seeds, edge_churn, scalar
             _notify(observer, "end_loop", ctx, mode, rec)
             loop_records.append(rec)
         _notify(observer, "after_loop", ctx)
+        snapshot_save_s, restore_s, snapshot_bytes = (
+            _restore_leg(api, gdev, snapshot_path) if api.checkpoint is not None
+            else (None, None, None))
         lat = np.asarray(lat_ms)
         record = {
             "metric": "live_path",
@@ -402,6 +419,9 @@ async def _run(api: LiveApi, n, deg, lane_groups, lane_seeds, edge_churn, scalar
             "mirror_bursts": gdev.mirror_bursts,
             "cold_start": {"build_s": build_s, "mirror_build_s": mirror_build_s,
                            "programs": program_warm_report()},
+            "snapshot_save_s": snapshot_save_s,
+            "restore_s": restore_s,
+            "snapshot_bytes": snapshot_bytes,
             "cut": list(CUT),
         }
         if len(loop_records) > 1:
@@ -409,6 +429,31 @@ async def _run(api: LiveApi, n, deg, lane_groups, lane_seeds, edge_churn, scalar
         return record
     finally:
         core.set_default_hub(old)
+
+
+def _restore_leg(api: LiveApi, gdev, path: Optional[str] = None) -> tuple:
+    """``perf/live_path.py``'s durable-restart budget: snapshot the live
+    device graph atomically, then time its load, the number a rolling
+    restart pays instead of the build. The snapshot goes to ``path`` and
+    stays there if one is given, else to a temporary directory. Returns
+    (save seconds, load seconds, snapshot bytes)."""
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="fusion-restore-") as td:
+        path = path or os.path.join(td, "graph.npz")
+        t0 = time.perf_counter()
+        api.checkpoint.save_graph(gdev, path)
+        save_s = time.perf_counter() - t0
+        n_bytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        restored = api.checkpoint.load_graph(path, **api.backend_kwargs)
+        load_s = time.perf_counter() - t0
+        if restored.n_nodes != gdev.n_nodes or restored.n_edges != gdev.n_edges:
+            raise AssertionError(
+                f"live: the restored graph has {restored.n_nodes} nodes and "
+                f"{restored.n_edges} edges, the live one {gdev.n_nodes} and {gdev.n_edges}")
+    return save_s, load_s, n_bytes
 
 
 def _lanes_burst(backend, block, group_ids):

@@ -7,3 +7,16 @@ version; the ELL builders and lone-wave lat programs (``ell_wave``), the
 bit-packed seed packers and the pull wave (``pull_wave``), and the
 columnar memo table (``memo_table``) with its scalar-graph bridge
 (``memo_bridge``)."""
+from .memo_bridge import MemoTableBridge
+from .memo_table import MemoTable
+from .wave import GraphArrays, run_wave, run_wave_with_stats, seeds_to_frontier, wave_step
+
+__all__ = [
+    "GraphArrays",
+    "MemoTable",
+    "MemoTableBridge",
+    "run_wave",
+    "run_wave_with_stats",
+    "seeds_to_frontier",
+    "wave_step",
+]

@@ -1041,3 +1041,101 @@ def test_cascade_rows_lanes_sharded_on_card_equals_cascade_rows_lanes(card):
     for a, b in zip(*results):
         assert np.array_equal(a, b)
     assert results[0][0].sum() > 0
+
+
+def _oplog_lane_replay(device, n: int = 20_000, ops: int = 512, seeds: int = 8):
+    """The op-log reader's batch replay on ``device``: host A (no graph
+    backend) commits ``ops`` row writes of ``seeds`` rows each through its
+    commander into an in-memory log; host B (a graph backend on
+    ``device``, a 20,000-row table bound as one block with
+    ``power_law_dag``'s edges declared, its topo mirror built) holds each
+    written row as a live node and replays the batch with ``read_new()``.
+    Returns the burst's lane counts, host B's invalid mask and stale rows,
+    and the written rows read back."""
+    import asyncio
+    import dataclasses
+
+    from stl_fusion_tpu_torch import core
+    from stl_fusion_tpu_torch.graph import TpuGraphBackend
+    from stl_fusion_tpu_torch.live_path import make_dag_service
+    from stl_fusion_tpu_torch.oplog import InMemoryOperationLog, attach_operation_log
+
+    @dataclasses.dataclass(frozen=True)
+    class RowsSet:
+        rows: tuple
+        value: float
+
+    async def run():
+        src, dst = power_law_dag(n, avg_degree=3, seed=7)
+        dag_type = make_dag_service(core, n, lambda a: torch.from_numpy(a).to(device))
+        dag_type.node.__compute_method_def__.table.device = device
+        hub_b = core.FusionHub()
+        backend = TpuGraphBackend(hub_b, node_capacity=n + 64, edge_capacity=len(src) + 4096,
+                                  device=device)
+        svc_b = dag_type(hub_b)
+        hub_b.add_service(svc_b, "dag")
+        table = core.memo_table_of(svc_b.node)
+        block = backend.bind_table_rows(table)
+        backend.declare_row_edges(block, src, block, dst)
+        backend.warm_block_on_device(block)
+        backend.flush()
+        backend.build_topo_mirror()
+        base, base_dev = svc_b.base, svc_b.load_dev_args()[0]
+
+        def host(hub, dag):
+            async def rows_set(command):
+                if core.is_invalidating():
+                    for r in command.rows:
+                        await dag.node(int(r))
+                    return
+                rows = np.asarray(command.rows, np.int64)
+                base[rows] = command.value
+                base_dev[torch.from_numpy(rows).to(device)] = command.value
+
+            hub.commander.add_handler(rows_set, command_type=RowsSet)
+
+        hub_a = core.FusionHub()
+        dag_a = dag_type(hub_a)
+        dag_a.base, dag_a._base_dev = base, base_dev
+        host(hub_a, dag_a)
+        host(hub_b, svc_b)
+        log = InMemoryOperationLog()
+        attach_operation_log(hub_a.commander, log, start_reader=False)
+        reader = attach_operation_log(hub_b.commander, log, start_reader=False)
+        rng = np.random.default_rng(5)
+        groups = [n // 2 + rng.choice(n // 2, size=seeds, replace=False) for _ in range(ops)]
+        rows = np.unique(np.concatenate(groups))
+        nodes = [await core.capture(lambda: svc_b.node(int(r))) for r in rows]
+        backend.flush()
+        for i, g in enumerate(groups):
+            await hub_a.commander.call(RowsSet(tuple(g.tolist()), float(1_000_000 + i)))
+        bursts = []
+        lanes = backend.invalidate_cascade_batch_lanes
+        backend.invalidate_cascade_batch_lanes = lambda gs: bursts.append(lanes(gs)) or bursts[-1]
+        assert await reader.read_new() == ops
+        assert len(bursts) == 1 and len(bursts[0]) == ops and len(nodes) == rows.size
+        union = backend.graph._h_invalid[:n].copy()
+        stale = np.asarray(table._stale_host).copy()
+        got = table.read_batch(torch.from_numpy(rows).to(device)).cpu().numpy()
+        scalar = np.asarray([await svc_b.node(int(r)) for r in rows], np.float32)
+        assert np.array_equal(got, base[rows]) and np.array_equal(scalar, base[rows])
+        return bursts[0], union, stale, got
+
+    return asyncio.run(run())
+
+
+def test_oplog_lane_replay_on_card_matches_cpu(card):
+    """The op-log reader's 512-lane batch replay (one
+    ``invalidate_cascade_batch_lanes`` burst: ``topo_sweep`` and
+    ``lane_finish`` on the card) at 20,000 nodes equals the same replay on
+    the CPU: lane counts, the union, the stale rows and the values read
+    back."""
+    from stl_fusion_tpu_torch.ops import topo_wave as tpw
+
+    want = _oplog_lane_replay(torch.device("cpu"))
+    before = (tpw.launches, tpw.lane_finish_launches)
+    got = _oplog_lane_replay(card)
+    assert tpw.launches > before[0] and tpw.lane_finish_launches > before[1]
+    for a, b in zip(got, want):
+        assert np.array_equal(a, b)
+    assert want[0].sum() > 0 and want[1].any()

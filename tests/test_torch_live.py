@@ -10,14 +10,20 @@ after the refresh and after the burst, and the mirror's patch, rebuild and
 pass counts must be EQUAL, and so must the lone waves' and the sequenced
 waves' results. Nonblocking: per harvested super-round the per-round
 counts, the stale set, the values and the host invalid mirror, and the
-loop's totals and counters must be EQUAL. Tolerance: exact."""
+loop's totals and counters must be EQUAL. Both runs end with the restore
+leg (``LIVE_RESTORE``: ``save_graph`` of the live graph, ``load_graph`` of
+the snapshot), whose snapshot bytes must be EQUAL too. Tolerance: exact."""
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import stl_fusion_tpu.checkpoint as jckpt
 import stl_fusion_tpu.core as jcore
 import stl_fusion_tpu.graph as jgraph
+from stl_fusion_tpu_torch.checkpoint import load_graph
 from stl_fusion_tpu_torch.live_path import LiveApi, port_api, run_live
 
 SHAPE = dict(n_nodes=20_000, rounds=3, lane_groups=64, edge_churn=200, lat_waves=8)
@@ -82,7 +88,7 @@ def _same_events(got_events, want_events):
                 assert a == b, (g[0], a, b)
 
 
-JAX_API = LiveApi(jcore, jgraph, {}, jnp.asarray, lambda: None, "stl_fusion_tpu (JAX)")
+JAX_API = LiveApi(jcore, jgraph, {}, jnp.asarray, lambda: None, "stl_fusion_tpu (JAX)", jckpt)
 
 
 def test_live_twin_matches_jax_run_of_the_same_loop():
@@ -92,8 +98,11 @@ def test_live_twin_matches_jax_run_of_the_same_loop():
     _same_events(got_events, want_events)
     for key in ("nodes", "edges", "mirror_levels", "live_wave_lat_served", "live_wave_seq_counts",
                 "live_total_inv", "live_churn_edges", "mirror_patches", "mirror_rebuilds",
-                "mirror_bursts"):
+                "mirror_bursts", "snapshot_bytes"):
         assert got[key] == want[key], key
+    # the restore leg ran through both packages
+    assert got["snapshot_bytes"] > 0 and got["restore_s"] is not None
+    assert want["restore_s"] is not None
     for g, w in zip(got["rounds"], want["rounds"]):
         for key in ("refreshed", "newly", "patched", "rebuilds", "mirror_bursts", "passes",
                     "scalar_rows"):
@@ -128,13 +137,19 @@ def test_nonblocking_live_twin_matches_jax(super_rounds):
         assert got["superround_programs"]["uncaptured"] == 0
 
 
-def test_live_loops_run_one_after_another_on_one_stack():
+def test_live_loops_run_one_after_another_on_one_stack(tmp_path):
     """``loops``: the blocking, super-round and chain loops on one built
     stack (``chip_smoke.py``'s ``live_sr_10m`` runs this shape at 10M
     rows): each loop reports its mode and lights rows, and no nonblocking
-    round falls back to the eager path."""
-    rec = run_live(**SHAPE, device="cpu",
+    round falls back to the eager path. The restore leg leaves its
+    snapshot at ``snapshot_path`` (``write_10m`` loads it), and it loads
+    with the live graph's counts."""
+    path = str(tmp_path / "graph.npz")
+    rec = run_live(**SHAPE, device="cpu", snapshot_path=path,
                    loops=[("blocking", 2), ("superround", 3), ("chain", 3)])
+    assert os.path.getsize(path) == rec["snapshot_bytes"]
+    restored = load_graph(path, device="cpu")
+    assert (restored.n_nodes, int(restored.n_edges)) == (rec["nodes"], rec["edges"])
     modes = [r["live_mode"] for r in rec["loops"]]
     assert modes == ["blocking", "superround", "chain"]
     assert rec["live_mode"] == "blocking" and rec["loops"][0]["live_rounds"] == 2
