@@ -123,6 +123,16 @@ user calls. Phases, each printing one JSON line:
    written after the snapshot; one ``write_10m_*`` line a step (commit
    p50/p99, ``read_new`` split, burst device ms and idle share, snapshot
    seconds and bytes, peak memory);
+10e. ``fanout_10m`` — on the same stack after ``write_10m``, the twin of
+   ``perf/fanout_path.py`` (``stl_fusion_tpu_torch/fanout_path.py``,
+   :func:`phase_fanout`): 100 RPC clients (one over TCP loopback, the rest
+   in memory with the wire codec), 16 subscribed tail keys and 4 keys
+   outside the bursts' union each; 2 rounds of ``perkey`` then
+   ``coalesced`` 32-group lane bursts, each fencing exactly the subscribed
+   keys inside the union, each once; a host-led leg equal to the dense
+   closure; the lone A/B; a ``RemoteTable`` of 1M ids whose re-read after
+   a burst fetches exactly the stale rows; one ``fanout_10m_round`` line a
+   round and a ``fanout_10m`` summary;
 11. ``kernels`` — every kernel form against its plain PyTorch version on the
    card, exact: ``or_popcount``'s four forms (merge, gate, delta at n = 7,
    128, 40,000 and 524,289 words, aliased as the main path calls them, and
@@ -162,7 +172,7 @@ which loads the entry; the loaded tables must equal the built ones, and the
 phase's checks run on the loaded mirror (``mirror_cache``: the cold build's
 and the load's seconds).
 
-The main path is eight paths, each driven with every kernel's launch count
+The main path is ten paths, each driven with every kernel's launch count
 set to 0 just before it and read just after: phases 3-4 (the dense wave,
 with HelloCart's mesh lane burst) must launch each ``or_popcount`` form
 and ``wave_expand_merge``, phase 5 (the sharded wave) ``or_popcount``'s
@@ -172,8 +182,12 @@ shards form and no other, ``wave_expand_shards`` and ``ring_all_gather``, phases
 churn) ``topo_sweep`` and ``lane_finish``, phase 10 (the live loop)
 ``topo_sweep``, ``lane_finish`` and ``block_refresh``, phase 10b (the
 super-round and chain loops, whose launches are CUDA graph replays: each
-replay adds the launches its capture recorded) the same three, and phase
-10c (the mesh loop) ``packed_pull`` and ``lane_finish``. Any
+replay adds the launches its capture recorded) the same three, phase
+10c (the mesh loop) ``packed_pull`` and ``lane_finish``, phase 10d (the
+write path) those of the lane and mesh bursts and the restored graph's
+dense wave, and phase 10e (the fan-out) ``topo_sweep``, ``lane_finish`` and
+``block_refresh``, and no ``wave_expand``, ``or_popcount`` or
+``packed_pull``. Any
 failure raises and the script exits non-zero. The last lines are the kernel
 summary (the forms the main path runs), the ``nvidia-smi`` name and power
 limit, and
@@ -1888,6 +1902,33 @@ WRITE_SEEDS = 8
 WRITE_RESUME_OPS = 64
 
 
+def _launch_state() -> tuple:
+    """Every launch counter the main path's kernels keep, to roll a check's
+    launches back with :func:`_restore_launches`."""
+    from stl_fusion_tpu_torch.ops import block_refresh as brf
+    from stl_fusion_tpu_torch.ops import or_popcount as opc
+    from stl_fusion_tpu_torch.ops import packed_pull as ppp
+    from stl_fusion_tpu_torch.ops import topo_wave as tpw
+    from stl_fusion_tpu_torch.ops import wave as wave_mod
+
+    return (tpw.launches, tpw.lane_finish_launches, brf.launches, ppp.launches,
+            ppp.early_exits, wave_mod.launches, dict(wave_mod.form_launches), opc.launches,
+            dict(opc.form_launches))
+
+
+def _restore_launches(saved: tuple) -> None:
+    from stl_fusion_tpu_torch.ops import block_refresh as brf
+    from stl_fusion_tpu_torch.ops import or_popcount as opc
+    from stl_fusion_tpu_torch.ops import packed_pull as ppp
+    from stl_fusion_tpu_torch.ops import topo_wave as tpw
+    from stl_fusion_tpu_torch.ops import wave as wave_mod
+
+    (tpw.launches, tpw.lane_finish_launches, brf.launches, ppp.launches, ppp.early_exits,
+     wave_mod.launches, wave_forms, opc.launches, opc_forms) = saved
+    wave_mod.form_launches.update(wave_forms)
+    opc.form_launches.update(opc_forms)
+
+
 def phase_write(device, card: str, live: dict, level: dict) -> dict:
     """``write_10m``: the write path on the live stack :func:`phase_live`
     built (the 10M-row ``DagTable`` block, its topo mirror and packed mesh
@@ -1934,7 +1975,9 @@ def phase_write(device, card: str, live: dict, level: dict) -> dict:
        memo table) restored into a fresh hub with no graph backend (its
        table on the card): its reader starts at the snapshot's position,
        host A commits 64 more operations, exactly their rows go stale
-       there, and every other row reads warm with no load call.
+       there, and every other row reads warm with no load call. Then host
+       B's own reader replays the 64 and reads their rows back, so the
+       live stack leaves the phase current with the store.
 
     The reference bursts and the original graph's wave are checks: their
     launches are rolled back. One ``write_10m_*`` line a step and a
@@ -1956,11 +1999,6 @@ async def _write_10m(device, card: str, live: dict, level: dict) -> dict:
         SqliteOperationLog,
         attach_operation_log,
     )
-    from stl_fusion_tpu_torch.ops import block_refresh as brf
-    from stl_fusion_tpu_torch.ops import or_popcount as opc
-    from stl_fusion_tpu_torch.ops import packed_pull as ppp
-    from stl_fusion_tpu_torch.ops import topo_wave as tpw
-    from stl_fusion_tpu_torch.ops import wave as wave_mod
     from stl_fusion_tpu_torch.utils.serialization import wire_type
 
     ctx, mesh = live["ctx"], live["mesh"]
@@ -1974,17 +2012,6 @@ async def _write_10m(device, card: str, live: dict, level: dict) -> dict:
 
     def fail(what):
         raise AssertionError(f"write_10m: {what}")
-
-    def counters():
-        return (tpw.launches, tpw.lane_finish_launches, brf.launches, ppp.launches,
-                ppp.early_exits, wave_mod.launches, dict(wave_mod.form_launches), opc.launches,
-                dict(opc.form_launches))
-
-    def roll_back(saved):
-        (tpw.launches, tpw.lane_finish_launches, brf.launches, ppp.launches, ppp.early_exits,
-         wave_mod.launches, wave_forms, opc.launches, opc_forms) = saved
-        wave_mod.form_launches.update(wave_forms)
-        opc.form_launches.update(opc_forms)
 
     @contextlib.contextmanager
     def timed(split, key, obj, name):
@@ -2182,12 +2209,12 @@ async def _write_10m(device, card: str, live: dict, level: dict) -> dict:
             """``run()`` from the state ``s0``, its launches rolled back,
             then the state after the checked step put back."""
             s1 = _live_state(backend, table)
-            saved = counters()
+            saved = _launch_state()
             journal, backend._journal = backend._journal, []
             _restore_live_state(backend, table, s0)
             res = run()
             check = _live_state(backend, table)
-            roll_back(saved)
+            _restore_launches(saved)
             _restore_live_state(backend, table, s1)
             backend._journal = journal + backend._journal
             return s1, check, res
@@ -2235,13 +2262,13 @@ async def _write_10m(device, card: str, live: dict, level: dict) -> dict:
         if log.last_index() != WRITE_GROUPS:
             fail(f"the log holds {log.last_index()} records after {WRITE_GROUPS} commits")
         s0 = _live_state(backend, table)
-        c0 = counters()
+        c0 = _launch_state()
         sync(device)
         t = time.perf_counter()
         handled = await reader_b.read_new()
         sync(device)
         read_ms = (time.perf_counter() - t) * 1e3
-        c1 = counters()
+        c1 = _launch_state()
         launches = {"topo_sweep": c1[0] - c0[0], "lane_finish": c1[1] - c0[1],
                     "wave_expand": c1[5] - c0[5], "packed_pull": c1[3] - c0[3]}
         if handled != WRITE_GROUPS or [b["kind"] for b in bursts] != ["lanes"]:
@@ -2282,13 +2309,13 @@ async def _write_10m(device, card: str, live: dict, level: dict) -> dict:
         s0 = _live_state(backend, table)
         entry0 = backend._packed_mirror
         patches0 = entry0["graph"].patches
-        c0 = counters()
+        c0 = _launch_state()
         sync(device)
         t = time.perf_counter()
         handled = await mesh_reader.read_new()
         sync(device)
         mesh_ms = (time.perf_counter() - t) * 1e3
-        c1 = counters()
+        c1 = _launch_state()
         wave2 = last_wave("sharded_lanes")
         entry1 = backend._packed_mirror
         mirror_kind = ("build" if entry1 is not entry0 else
@@ -2437,6 +2464,14 @@ async def _write_10m(device, card: str, live: dict, level: dict) -> dict:
                    "resume_rows_loaded": resumed_loads, "warm_rows_checked": int(warm.size), "warm_nodes_checked": len(warm_nodes),
                    "fresh_hub_backend": "none", "fresh_hub_table_device": str(table_c.device)}
         emit(restart)
+        # host B's own reader catches up with the operations committed after
+        # the snapshot (their rows held live, as a server holds watched
+        # nodes), so the hub leaves this phase current with the store
+        live_nodes = await read_rows(groups3)
+        if await reader_b.read_new() != WRITE_RESUME_OPS:
+            fail("host B's reader did not replay the operations after the snapshot")
+        await read_back(rows3, svc_b, "host B after the resume")
+        settle()
     finally:
         del backend.invalidate_cascade_batch_lanes
         del backend.invalidate_cascade_batch_lanes_sharded
@@ -2453,6 +2488,212 @@ async def _write_10m(device, card: str, live: dict, level: dict) -> dict:
                hub_checkpoint_restore_s=ckpt_restore_s,
                hub_checkpoint_bytes=restart["hub_checkpoint_bytes"],
                max_memory_allocated=torch.cuda.max_memory_allocated() if cuda else None)
+    emit(out)
+    return out
+
+
+FANOUT_CLIENTS = 100  # perf/fanout_path.py's defaults
+FANOUT_KEYS = 16
+FANOUT_ROUNDS = 2
+FANOUT_GROUPS = 32
+FANOUT_SEEDS_PER_GROUP = 4
+FANOUT_LONE_SAMPLES = 24
+FANOUT_OUTSIDE_KEYS = 4  # keys a client outside every burst's union
+FANOUT_REMOTE_IDS = 1_000_000
+FANOUT_REMOTE_SEED = 13
+
+
+def phase_fanout(device, card: str, live: dict) -> dict:
+    """``fanout_10m``: the twin of ``perf/fanout_path.py``
+    (``stl_fusion_tpu_torch/fanout_path.py``) on the live stack
+    :func:`phase_live` built and :func:`phase_write` left settled. The
+    server ``RpcHub`` serves ``svc`` as ``"dag"`` with the ``$sys-c`` call
+    type and a ``ComputeFanoutIndex`` on the backend's newly hooks.
+
+    1. 100 clients, each on its own ``FusionHub`` and ``RpcHub``: client 0
+       over ``rpc/tcp.py`` on 127.0.0.1, the rest over
+       ``RpcTestTransport(wire_codec=True)``; each holds the script's 16
+       tail-row keys and 4 keys outside the bursts' union (the dense wave of
+       the 32 groups' seeds from a settled state, a check whose launches
+       are rolled back and whose invalid state is cleared).
+    2. ``perkey`` then ``coalesced``, 2 rounds each: subscribe, flush the
+       re-subscriptions' churn untimed, one 32-group ``cascade_rows_lanes``
+       burst. Each round: the fenced (client, key) pairs are exactly the
+       subscribed keys inside the union, each by one invalidation entry;
+       the next subscribe reads back every fenced key's value; ``perkey``
+       sends no batch frame, ``coalesced`` fewer batch frames than
+       subscriptions; the system's ``fusion_e2e_delivery_ms`` histogram
+       takes at most one sample a fence, and some. The last coalesced
+       burst is profiled.
+    3. The host-led leg: one deep seed row invalidated through
+       ``invalidating()`` on ``svc.node`` expands at the next flush on the
+       mirrors (one seed: the lat mirror, or the topo sweep past its caps,
+       as ``write_10m``'s local writes, whose dense launches are its
+       restored graph's wave); the fenced subscriptions equal the dense
+       wave's closure of the row intersected with the subscribed keys.
+    4. The script's lone A/B: 24 samples a mode, alternated, each one
+       ``cascade_rows_batch(block, [key])`` whose subscriber is fenced.
+    5. A ``RemoteTable`` over ``RemoteTableHost.expose("dag", table)`` on
+       client 1: ``read_batch`` of 1,000,000 seeded ids equals the host
+       base; one lane burst's ``$sys-t`` fence arrives; after
+       ``refresh_block_on_device`` a second ``read_batch`` of the same ids
+       fetches exactly the rows among them the burst left stale, and
+       returns equal values.
+
+    One ``fanout_10m_round`` line a mode and round, and a ``fanout_10m``
+    summary (with the system's delivery histogram a mode and the device
+    waves each leg dispatched, by kind), each with the card's name and
+    power limit."""
+    return asyncio.run(_fanout_10m(device, card, live))
+
+
+async def _fanout_10m(device, card: str, live: dict) -> dict:
+    import numpy as np
+    import torch
+
+    from stl_fusion_tpu_torch.client import RemoteTable, RemoteTableHost
+    from stl_fusion_tpu_torch.fanout_path import FanoutRun, port_api
+
+    ctx = live["ctx"]
+    backend, block, table, svc = ctx["backend"], ctx["block"], ctx["table"], ctx["svc"]
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+
+    def fail(what):
+        raise AssertionError(f"fanout_10m: {what}")
+
+    def checked(fn):
+        saved = _launch_state()
+        try:
+            return fn()
+        finally:
+            _restore_launches(saved)
+
+    prof = {}
+
+    def around_burst(mode, rnd, fn):
+        if not (cuda and mode == "coalesced" and rnd == FANOUT_ROUNDS - 1):
+            return fn()
+        wall, by_name, calls = profile_device(device, lambda: prof.update(counts=fn()))
+        dev_ms = sum(v["ms"] for v in by_name.values())
+        prof.update(mode=mode, round=rnd, wall_ms=wall, device_ms=dev_ms,
+                    idle_share=1 - dev_ms / wall, device_calls=calls,
+                    topo_sweep=kernel_calls(by_name, SYMBOLS["topo_sweep"]),
+                    lane_finish=kernel_calls(by_name, SYMBOLS["lane_finish"]))
+        return prof.pop("counts")
+
+    run = FanoutRun(port_api(device), ctx, clients=FANOUT_CLIENTS,
+                    keys_per_client=FANOUT_KEYS, groups=FANOUT_GROUPS,
+                    seeds_per_group=FANOUT_SEEDS_PER_GROUP, outside_keys=FANOUT_OUTSIDE_KEYS,
+                    tcp_clients=1, checked=checked, around_burst=around_burst)
+    try:
+        start = await run.start()
+        if [c.transport for c in run.clients[:2]] != ["tcp", "memory"]:
+            fail("client 0 is not the TCP client")
+        modes = {}
+        for mode in ("perkey", "coalesced"):
+            modes[mode] = res = await run.run_mode(mode, FANOUT_ROUNDS)
+            for r in res["rounds"]:
+                emit({"phase": "fanout_10m_round", "card": card, **r})
+            # one sample a fence at most: the range guard drops a sample that
+            # the peer's probed clock offset maps before its origin
+            if not 0 < res["system_delivery_ms"]["count"] <= res["clients_fenced_total"]:
+                fail(f"{mode}: the system's delivery histogram took "
+                     f"{res['system_delivery_ms']['count']} samples for "
+                     f"{res['clients_fenced_total']} fences")
+        host_led = await run.host_led()
+        if not host_led["fenced"] or len(host_led["fenced"]) >= FANOUT_CLIENTS * FANOUT_KEYS:
+            fail(f"the host-led leg fenced {len(host_led['fenced'])} subscriptions")
+        lone = await run.lone_ab(FANOUT_LONE_SAMPLES)
+
+        # ---- 5. the remote table over the live 10M-row table
+        RemoteTableHost(run.server_rpc).expose("dag", table)
+        reader = run.clients[1]
+        rt = RemoteTable(reader.rpc, f"c{reader.i}", "dag")
+        ids = np.random.default_rng(FANOUT_REMOTE_SEED).choice(
+            ctx["n"], size=FANOUT_REMOTE_IDS, replace=False).astype(np.int64)
+        t = time.perf_counter()
+        got = await rt.read_batch(ids)
+        first_ms = (time.perf_counter() - t) * 1e3
+        if not np.array_equal(got, svc.base[ids]):
+            fail("the remote table's first read differs from the host base")
+        fetched = []
+        fetch = rt._fetch
+
+        async def counted(rows):
+            fetched.append(len(rows))
+            await fetch(rows)
+
+        rt._fetch = counted
+        fences0 = rt.fences_seen
+        t = time.perf_counter()
+        backend.cascade_rows_lanes(block, [run.groups[0]])
+        burst_stale = table.stale_count()
+        stale = int(table._stale_host[ids].sum())
+        # the burst's seeds fence first (their scalar nodes), then the wave
+        while int((~rt._valid[ids]).sum()) < stale:
+            if time.perf_counter() - t > 60:
+                fail(f"the remote table's fence did not arrive ({rt.fences_seen - fences0} "
+                     f"fences, {int((~rt._valid[ids]).sum())} of {stale} rows)")
+            await asyncio.sleep(0.001)
+        fence_ms = (time.perf_counter() - t) * 1e3
+        fences = rt.fences_seen - fences0
+        await asyncio.sleep(0.05)
+        local_stale = int((~rt._valid[ids]).sum())
+        backend.refresh_block_on_device(block)
+        backend.flush()
+        t = time.perf_counter()
+        again = await rt.read_batch(ids)
+        reread_ms = (time.perf_counter() - t) * 1e3
+        if not stale or sum(fetched) != stale or local_stale != stale:
+            fail(f"the re-read fetched {sum(fetched)} rows, the fence left {local_stale} "
+                 f"stale, the burst {stale} among the ids")
+        if not np.array_equal(again, svc.base[ids]):
+            fail("the remote table's re-read differs from the host base")
+        rt.dispose()
+        itemsize = got.dtype.itemsize
+        remote = {"ids": FANOUT_REMOTE_IDS, "first_read_ms": first_ms,
+                  "first_read_bytes": int(got.nbytes), "fence_ms": fence_ms,
+                  "fences": fences, "fence_rows": burst_stale, "fence_bytes": burst_stale * 4,
+                  "stale_rows_among_ids": stale, "reread_ms": reread_ms,
+                  "reread_rows_fetched": int(sum(fetched)),
+                  "reread_bytes": int(sum(fetched) * itemsize),
+                  "remote_reads": rt.remote_reads}
+        run.settle_block()
+    finally:
+        await run.close()
+    pk, co = modes["perkey"], modes["coalesced"]
+    out = {"phase": "fanout_10m", "card": card, "clients": FANOUT_CLIENTS,
+           "keys_per_client": FANOUT_KEYS, "outside_keys_per_client": FANOUT_OUTSIDE_KEYS,
+           "rounds": FANOUT_ROUNDS, "lane_groups": FANOUT_GROUPS,
+           "seeds_per_group": FANOUT_SEEDS_PER_GROUP, "union": start["union"],
+           "outside_union": start["outside_union"],
+           "clients_fenced_per_s": {"perkey": pk["clients_fenced_per_s"],
+                                    "coalesced": co["clients_fenced_per_s"]},
+           "coalesced_vs_perkey_speedup": co["clients_fenced_per_s"] / pk["clients_fenced_per_s"],
+           "burst_inv_total": {"perkey": pk["burst_inv_total"],
+                               "coalesced": co["burst_inv_total"]},
+           "batch_frames": {"perkey": pk["batch_frames"], "coalesced": co["batch_frames"]},
+           "keys_per_frame": co["keys_per_frame"], "coalesce_ratio": co["coalesce_ratio"],
+           "delivery_ms_p50_p99": {m: [r["delivery_ms_p50"], r["delivery_ms_p99"]]
+                                   for m, r in modes.items()},
+           "tcp_delivery_ms_p50_p99": {m: [r["tcp_delivery_ms_p50"], r["tcp_delivery_ms_p99"]]
+                                       for m, r in modes.items()},
+           "system_delivery_ms": {m: r["system_delivery_ms"] for m, r in modes.items()},
+           "dispatches": {**{m: r["dispatches"] for m, r in modes.items()},
+                          "host_led": host_led["dispatches"], "lone": lone["lone_dispatches"]},
+           "staleness_ms_p50_p99": {m: [r["staleness_ms_p50"], r["staleness_ms_p99"]]
+                                    for m, r in modes.items()},
+           "lone_ms_p50_p99": {m: [lone[f"{m}_lone_ms_p50"], lone[f"{m}_lone_ms_p99"]]
+                               for m in ("perkey", "coalesced")},
+           "lone_samples_per_mode": lone["lone_samples_per_mode"],
+           "host_led": {k: v for k, v in host_led.items() if k not in ("fenced", "dispatches")}
+           | {"fenced": len(host_led["fenced"])},
+           "remote_table": remote, "burst_profile": prof, "start_s": start["start_s"],
+           "phase_s": time.perf_counter() - t_phase,
+           "max_memory_allocated": torch.cuda.max_memory_allocated() if cuda else None}
     emit(out)
     return out
 
@@ -3720,8 +3961,15 @@ def _main(torch, device, dev, work, opc_mod, wave_mod, rag_mod, tpw_mod, brf_mod
     _, writed = drive("write", lambda: phase_write(device, dev["nvidia_smi"], live, level),
                       ("topo_sweep", "lane_finish", "packed_pull", "block_refresh",
                        "or_popcount.merge", "or_popcount.delta", "wave_expand_merge"))
+    # every wave of the fan-out rides the mirrors: the lane bursts and the
+    # re-subscriptions' expansions the topo sweep, the host-led leg and the
+    # lone samples (one seed each) the lat mirror or, past its caps, the sweep
+    _, fanoutd = drive("fanout", lambda: phase_fanout(device, dev["nvidia_smi"], live),
+                       ("topo_sweep", "lane_finish", "block_refresh"),
+                       absent=("wave_expand.all_forms", "or_popcount", "packed_pull"))
     main_launches = {name: sum(p[name] for p in (dense, sharded, mirror, packedd, churned, lived,
-                                                 live_srd, meshd, writed)) for name in dense}
+                                                 live_srd, meshd, writed, fanoutd))
+                     for name in dense}
     kernels = phase_kernels(device, main_launches, level, sg, topo, churn, live, packed,
                             dev["nvidia_smi"])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

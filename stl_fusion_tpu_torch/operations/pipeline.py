@@ -72,8 +72,7 @@ class InvalidationInfoProvider:
     RoutingComputeProxy) — the OWNING host replays and pushes invalidation
     over RPC, so a local replay would double-invalidate through stale local
     state — or when the command type opts out via
-    ``__requires_invalidation__ = False``. The proxy test returns with
-    ``client/`` (ROADMAP A.7); until then only the opt-out is checked."""
+    ``__requires_invalidation__ = False``."""
 
     def __init__(self, commander: "Commander"):
         self.commander = commander
@@ -82,12 +81,23 @@ class InvalidationInfoProvider:
         if getattr(type(command), "__requires_invalidation__", True) is False:
             return False
         try:
-            self.commander.registry.resolve(command)
+            chain = self.commander.registry.resolve(command)
         except LookupError:
             return False
-        # the remote-proxy test (FusionClient, RoutingComputeProxy) comes
-        # back with client/ (ROADMAP A.7): until then no handler is a proxy
-        return True
+        final_fn = chain[-1].fn
+        # remote-proxy methods are __getattr__ closures tagged with
+        # __fusion_remote_proxy__ (client_function.py / service_modes.py);
+        # bound methods of a proxy-ish object are covered by __self__
+        target = getattr(final_fn, "__fusion_remote_proxy__", None)
+        if target is None:
+            target = getattr(final_fn, "__self__", None)
+            wrapped = getattr(final_fn, "__wrapped__", None)
+            if wrapped is not None:
+                target = getattr(wrapped, "__self__", target)
+        from ..client.client_function import FusionClient
+        from ..client.service_modes import RoutingComputeProxy
+
+        return not isinstance(target, (FusionClient, RoutingComputeProxy))
 
 
 class OperationsHost:

@@ -292,3 +292,33 @@ async def test_nested_replay_survives_top_level_opt_out():
         assert seen[:2] == [2.0, 7.0]
         return seen
     await both(run)
+
+
+async def test_requires_invalidation_skips_remote_proxy_handlers():
+    """A command whose final handler is a ``compute_client`` proxy method
+    (``__fusion_remote_proxy__``) is replayed by its owning host, not here:
+    ``requires_invalidation`` is False for it and True for a local handler,
+    in both packages (JAX ``operations/pipeline.py:85-101``)."""
+    import stl_fusion_tpu.client as jclient
+    import stl_fusion_tpu.rpc as jrpc
+    import stl_fusion_tpu_torch.client as pclient
+    import stl_fusion_tpu_torch.rpc as prpc
+
+    async def run(core, commands, utils, hub):
+        client_mod, rpc_mod = (jclient, jrpc) if core is jcore else (pclient, prpc)
+        ProductService, _ = hello_cart(core, commands)
+        products = ProductService()
+        rpc_hub = rpc_mod.RpcHub("client")
+        client_mod.install_compute_call_type(rpc_hub)
+        proxy = client_mod.compute_client("products", rpc_hub, hub)
+        router = client_mod.RoutingComputeProxy("products", rpc_hub, hub)
+        hub.commander.add_handler(proxy.edit, command_type=EditProduct)
+        hub.commander.add_handler(router.edit, command_type=EditBoth)
+        hub.commander.add_handler(products.edit, command_type=Greet)
+        info = hub.commander.operations.invalidation_info
+        seen = [info.requires_invalidation(c) for c in (
+            EditProduct(Product("x", 1.0)), EditBoth(Product("x", 1.0), Product("y", 2.0)),
+            Greet("local"), OptOutEditBoth(Product("x", 1.0), Product("y", 2.0)))]
+        assert seen == [False, False, True, False]
+        return seen
+    await both(run)

@@ -25,12 +25,13 @@ PORT = Path(stl_fusion_tpu_torch.__file__).resolve().parent
 UNPORTED_MODULES = {
     "diagnostics.auditor": "A.8",
     "diagnostics.explain": "A.8",
-    "diagnostics.hotkeys": "A.8",
     "diagnostics.invariants": "A.8",
     "diagnostics.mesh_telemetry": "A.8",
     "diagnostics.monitor": "A.8",
     "diagnostics.slo": "A.8",
     "resilience.chaos": "A.8",
+    "rpc.http_gateway": "A.7",
+    "rpc.middleware": "A.7",
     "resilience.breaker": "A.8",
     "resilience.watchdog": "A.8",
     "parallel.routed_wave": "A.9",
@@ -47,11 +48,8 @@ UNPORTED_MODULES = {
 #: graph packer: the port builds ``csrc/graphpack.cpp`` through
 #: ``ops/_build.py::load_host`` instead)
 UNPORTED_PACKAGES = {
-    "client": "A.7",
     "edge": "A.7",
     "ext": "A.7",
-    "rpc": "A.7",
-    "testing": "A.7",
     "ui": "A.7",
     "native": "ported as ops/_build.py::load_host",
 }

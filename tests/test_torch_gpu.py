@@ -1139,3 +1139,53 @@ def test_oplog_lane_replay_on_card_matches_cpu(card):
     for a, b in zip(got, want):
         assert np.array_equal(a, b)
     assert want[0].sum() > 0 and want[1].any()
+
+
+def test_remote_table_host_reads_a_card_table_into_ndarrays(card):
+    """``RemoteTableHost`` over a ``MemoTable`` on the card: each
+    ``read_batch`` RPC crosses to the host once and returns an ndarray equal
+    to the base, and a ``RemoteTable`` client reads the same rows."""
+    import asyncio
+
+    from stl_fusion_tpu_torch.client import TABLE_RPC_SERVICE, RemoteTable, RemoteTableHost
+    from stl_fusion_tpu_torch.ops.memo_table import MemoTable
+    from stl_fusion_tpu_torch.rpc import RpcHub, RpcTestTransport
+
+    base = np.arange(5000, dtype=np.float32) * 3.0
+    ids = np.random.default_rng(5).choice(5000, size=1200, replace=False)
+
+    async def run():
+        server, reader = RpcHub("server"), RpcHub("client")
+        RpcTestTransport(reader, server, wire_codec=True)
+        table = MemoTable(5000, lambda rows: base[np.asarray(rows, dtype=np.int64)], device=card)
+        assert table.values.is_cuda
+        RemoteTableHost(server).expose("t", table)
+        service = server.service_registry.require(TABLE_RPC_SERVICE)
+        direct = await service.method("read_batch").fn("t", ids)
+        remote = RemoteTable(reader, "default", "t")
+        got = await remote.read_batch(ids)
+        await reader.stop()
+        await server.stop()
+        return direct["values"], got
+
+    direct, got = asyncio.run(run())
+    assert isinstance(direct, np.ndarray) and isinstance(got, np.ndarray)
+    assert np.array_equal(direct, base[ids]) and np.array_equal(got, base[ids])
+
+
+def test_fanout_index_on_card_fences_exactly_the_union(card):
+    """A small lane burst on a card backend: ``FanoutRun`` holds the fenced
+    (client, key) pairs equal to the subscribed keys inside the dense
+    wave's union (and no key outside it), each by one entry; the burst, the
+    frames and the device waves by kind equal the same run on the CPU."""
+    from stl_fusion_tpu_torch.fanout_path import run_fanout
+
+    edges = power_law_dag(20_000, avg_degree=3, seed=7)
+    shape = dict(n_nodes=20_000, clients=4, keys_per_client=4, rounds=1, groups=8,
+                 seeds_per_group=4, modes=("coalesced",), lone_samples=0, outside_keys=2,
+                 edges=edges)
+    got = [run_fanout(**shape, device=dev) for dev in (card, "cpu")]
+    keys = ("union", "coalesced_clients_fenced_total", "coalesced_burst_inv_total",
+            "coalesced_batch_frames", "coalesced_invalidations_posted", "coalesced_dispatches")
+    assert [{k: r[k] for k in keys} for r in got][0] == {k: got[1][k] for k in keys}
+    assert got[0]["coalesced_clients_fenced_total"] == 16

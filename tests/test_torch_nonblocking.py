@@ -1,8 +1,8 @@
 """Parity of the port's nonblocking wave pipeline (``graph/nonblocking.py``:
 ``WavePipeline``, the lane chain's dispatch and harvest) and its
 burst→refresh chain (``cascade_rows_lanes_refresh_chain``) with the JAX
-package's: the cases of ``tests/test_nonblocking.py`` that need neither the
-watchdog nor RPC, each run as one scenario through both packages on the
+package's: the cases of ``tests/test_nonblocking.py`` that need no
+watchdog, chaos or ``explain``, each run as one scenario through both packages on the
 same numpy-made DAG (``power_law_dag(800, 3, seed=7)``, a table-backed
 service) and the same seeded waves, with JAX's assertions held on both and
 the results required EQUAL: per-wave counts, host and device invalid
@@ -10,19 +10,26 @@ masks, table values and staleness, the pipeline's counters. The fused
 chain's invalid set is also held against JAX's host-BFS oracle
 (``WaveWatchdog._host_closure``, run on the port's own host arrays). The
 overlap case counts fences applied while another chain is in flight
-through a ``newly_hooks`` subscriber (the RPC fan-out index that counts
-them in JAX is ROADMAP A.7). Left out, with their slices: the watchdog's
-injected fault and degraded mode (A.8), seeded chaos, RPC and ``explain``
-(A.7/A.8). Tolerance: exact."""
+through the port's RPC fan-out index (``ComputeFanoutIndex.
+drained_overlapped``) over a client subscribed through the in-memory
+transport, and the outbox case merges a batch post under one kick. Left
+out, with their slice: the watchdog's injected fault and degraded mode,
+seeded chaos and ``explain`` (A.8). Tolerance: exact."""
+import asyncio
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import stl_fusion_tpu.client as jclient
 import stl_fusion_tpu.core as jcore
 import stl_fusion_tpu.graph as jgraph
+import stl_fusion_tpu.rpc as jrpc
+import stl_fusion_tpu_torch.client as pclient
 import stl_fusion_tpu_torch.core as pcore
 import stl_fusion_tpu_torch.graph as pgraph
+import stl_fusion_tpu_torch.rpc as prpc
 from stl_fusion_tpu.diagnostics import global_metrics as jax_metrics
 from stl_fusion_tpu.graph.synthetic import power_law_dag
 from stl_fusion_tpu.resilience import WaveWatchdog
@@ -349,33 +356,95 @@ def test_harvest_fault_contained_to_host_path(monkeypatch):
 
 
 # ---------------------------------------------------------------- overlap
-def test_overlap_drain_counts_fences_inside_flight_window():
-    """Two chains back to back: the first chain's fence drain runs while
-    the second is in flight (``overlap_active`` raised around it), the
-    pipeline counts the overlap harvest and reports occupancy > 0, and a
-    ``newly_hooks`` subscriber sees those fences inside the window."""
+def _rpc(pkg):
+    """The package's ``rpc`` and ``client`` modules."""
+    return (jrpc, jclient) if pkg is JAX else (prpc, pclient)
 
-    def scenario(pkg):
-        hub, backend, _svc, table, block = make_stack(pkg)
-        drained = {"total": 0, "overlapped": 0}
 
-        def hook(newly):
-            n = int(np.count_nonzero(newly)) if newly.dtype == bool else len(newly)
-            drained["total"] += n
-            if backend.overlap_active:
-                drained["overlapped"] += n
+def _rpc_stack(pkg, build_mirror=True, fanout=True):
+    """``tests/test_nonblocking.py``'s RPC stack (its explain services are
+    A.8): the server serves the DAG (with a fan-out index unless
+    ``fanout`` is False), one client over the in-memory transport with the
+    wire codec."""
+    rpc, client_mod = _rpc(pkg)
+    hub, backend, svc, table, block = make_stack(pkg, build_mirror=build_mirror)
+    server_rpc = rpc.RpcHub("server")
+    client_mod.install_compute_call_type(server_rpc)
+    server_rpc.add_service("dag", svc)
+    if fanout:
+        rpc.install_compute_fanout(server_rpc, backend)
+    client_rpc = rpc.RpcHub("client")
+    client_mod.install_compute_call_type(client_rpc)
+    rpc.RpcTestTransport(client_rpc, server_rpc, wire_codec=True)
+    client = client_mod.compute_client("dag", client_rpc, pkg[1].FusionHub())
+    return hub, backend, table, block, server_rpc, client_rpc, client
 
-        backend.newly_hooks.append(hook)
-        pipe = hub.enable_nonblocking(fuse_depth=1)
-        pipe.submit_rows(block, [0])
-        pipe.submit_rows(block, [1])
-        pipe.drain()
-        st = pipe.stats()
-        assert drained["overlapped"] >= 1 and drained["total"] >= drained["overlapped"]
-        assert st["overlap_harvests"] >= 1
-        assert pipe.overlap_occupancy() > 0.0
-        assert not backend.overlap_active
-        return {"drained": drained, "overlap_harvests": st["overlap_harvests"],
-                "harvests": st["harvests"], **state(backend, table)}
 
-    both(scenario)
+async def test_overlap_drain_counts_fences_inside_flight_window():
+    """With two chains in flight back to back, the first chain's fence
+    drain runs while the second executes: the fan-out index counts it under
+    ``drained_overlapped``, the pipeline reports overlap occupancy, and
+    every subscribed client key is fenced."""
+    out = {}
+    for pkg in (JAX, PORT):
+        core = pkg[1]
+        hub, backend, table, block, server_rpc, client_rpc, client = _rpc_stack(pkg)
+        try:
+            keys = [N - 1 - i for i in range(3)]
+            nodes = []
+            for key in keys:
+                assert await client.node(int(key)) == float(key)
+                nodes.append(await core.capture(lambda key=key: client.node(int(key))))
+            pipe = hub.enable_nonblocking(fuse_depth=1)
+            # chain 1 fences the subscriptions (root seed); chain 2 dispatches
+            # before chain 1 is harvested, so that harvest's drain runs in
+            # chain 2's flight window
+            pipe.submit_rows(block, [0])
+            pipe.submit_rows(block, [1])
+            pipe.drain()
+            assert not backend.overlap_active
+            index = server_rpc.compute_fanout
+            assert index.drained_total >= len(keys)
+            assert index.drained_overlapped >= 1, index.stats()
+            st = pipe.stats()
+            assert st["overlap_harvests"] >= 1
+            assert pipe.overlap_occupancy() > 0.0
+            await asyncio.wait_for(asyncio.gather(*(nd.when_invalidated() for nd in nodes)),
+                                   10.0)
+            out[pkg[0]] = {"index": {k: v for k, v in index.stats().items()},
+                           "overlap_harvests": st["overlap_harvests"],
+                           "harvests": st["harvests"], **state(backend, table)}
+        finally:
+            await client_rpc.stop()
+            await server_rpc.stop()
+    same(out["port"], out["jax"])
+
+
+# ---------------------------------------------------------------- outbox batch
+async def test_outbox_batch_post_merges_under_one_kick():
+    """``PeerOutbox.post_invalidations``: N entries merge into the pending
+    map (version-deduped, last wins) and flush as one batch frame."""
+    out = {}
+    for pkg in (JAX, PORT):
+        core = pkg[1]
+        _hub, _backend, _table, _block, server_rpc, client_rpc, client = _rpc_stack(
+            pkg, build_mirror=False, fanout=False)
+        try:
+            assert await client.node(3) == 3.0
+            node = await core.capture(lambda: client.node(3))
+            (peer,) = server_rpc.peers.values()
+            call_id = node.call.call_id
+            peer.outbox.post_invalidations([
+                (call_id, "@stale", None, None),
+                (call_id, node.version.format(), None, None),  # last wins
+            ])
+            await asyncio.wait_for(node.when_invalidated(), 5.0)
+            stats = peer.outbox.stats()
+            assert stats["invalidations_posted"] >= 2
+            assert stats["invalidations_coalesced"] >= 1
+            assert stats["batch_frames_sent"] >= 1
+            out[pkg[0]] = stats
+        finally:
+            await client_rpc.stop()
+            await server_rpc.stop()
+    assert out["port"] == out["jax"], out
