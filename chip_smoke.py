@@ -133,6 +133,19 @@ user calls. Phases, each printing one JSON line:
    closure; the lone A/B; a ``RemoteTable`` of 1M ids whose re-read after
    a burst fetches exactly the stale rows; one ``fanout_10m_round`` line a
    round and a ``fanout_10m`` summary;
+10f. ``edge_10m`` — on the same stack after ``fanout_10m``, the twin of
+   ``perf/edge_path.py`` (``stl_fusion_tpu_torch/edge_path.py``,
+   :func:`phase_edge`) at the script's defaults on the 10M rows: 4
+   ``EdgeNode`` gateways over the wire codec, 2 delivery worker processes
+   an edge on the ``send_fds`` plane, 512 tail-row keys and 1,000,000
+   sessions of 2 keys by zipf 1.1; 2 measured 16-group lane bursts on the
+   block value plane, each held exactly (512 upstream subscriptions an
+   edge, 2,048 on the server, every delivery once at the server's value,
+   no eviction, no upstream RPC, every fence a block hit), the last one
+   profiled; the encode gates; the smoke leg (a real ``EdgeHttpServer``
+   with SSE consumers over TCP loopback, a ``/metrics`` scrape, one burst,
+   the pool's listener); one ``edge_10m_round`` line a round and an
+   ``edge_10m`` summary with both delivery clocks;
 11. ``kernels`` — every kernel form against its plain PyTorch version on the
    card, exact: ``or_popcount``'s four forms (merge, gate, delta at n = 7,
    128, 40,000 and 524,289 words, aliased as the main path calls them, and
@@ -172,7 +185,7 @@ which loads the entry; the loaded tables must equal the built ones, and the
 phase's checks run on the loaded mirror (``mirror_cache``: the cold build's
 and the load's seconds).
 
-The main path is ten paths, each driven with every kernel's launch count
+The main path is eleven paths, each driven with every kernel's launch count
 set to 0 just before it and read just after: phases 3-4 (the dense wave,
 with HelloCart's mesh lane burst) must launch each ``or_popcount`` form
 and ``wave_expand_merge``, phase 5 (the sharded wave) ``or_popcount``'s
@@ -185,9 +198,9 @@ super-round and chain loops, whose launches are CUDA graph replays: each
 replay adds the launches its capture recorded) the same three, phase
 10c (the mesh loop) ``packed_pull`` and ``lane_finish``, phase 10d (the
 write path) those of the lane and mesh bursts and the restored graph's
-dense wave, and phase 10e (the fan-out) ``topo_sweep``, ``lane_finish`` and
-``block_refresh``, and no ``wave_expand``, ``or_popcount`` or
-``packed_pull``. Any
+dense wave, and phases 10e (the fan-out) and 10f (the edge tier)
+``topo_sweep``, ``lane_finish`` and ``block_refresh``, and no
+``wave_expand``, ``or_popcount`` or ``packed_pull``. Any
 failure raises and the script exits non-zero. The last lines are the kernel
 summary (the forms the main path runs), the ``nvidia-smi`` name and power
 limit, and
@@ -2698,6 +2711,132 @@ async def _fanout_10m(device, card: str, live: dict) -> dict:
     return out
 
 
+EDGE_NODES = 4  # perf/edge_path.py's defaults
+EDGE_SESSIONS = 1_000_000
+EDGE_KEYS = 512
+EDGE_KEYS_PER_SESSION = 2
+EDGE_ZIPF = 1.1
+EDGE_ROUNDS = 2
+EDGE_GROUPS = 16
+EDGE_SEEDS_PER_GROUP = 2
+EDGE_WORKERS = 2
+EDGE_FAN_WORKERS = 2
+
+
+def phase_edge(device, card: str, live: dict) -> dict:
+    """``edge_10m``: the twin of ``perf/edge_path.py``
+    (``stl_fusion_tpu_torch/edge_path.py``, ``EdgeRun``) at the script's
+    defaults on the live stack :func:`phase_live` built and
+    :func:`phase_fanout` left settled: the server graph is the stack's 10M
+    rows, not the script's 2M.
+
+    1. The server ``RpcHub`` serves ``svc`` as ``"dag"`` with a
+       ``ComputeFanoutIndex`` and a ``WaveValuePublisher``; the 512 tail-row
+       keys round-robin into 16 groups with 2 deep seeds each; one untimed
+       warm ``cascade_rows_lanes`` burst and refresh.
+    2. 4 ``EdgeNode``s, each on its own ``FusionHub`` and ``RpcHub`` over
+       ``RpcTestTransport(wire_codec=True)``, 2 fan workers and an
+       ``EdgeWorkerPool`` of 2 worker processes on the ``send_fds`` plane;
+       one probe session an edge over every key, then 1,000,000 sessions
+       (250,000 an edge, in the workers) of 2 keys by zipf 1.1.
+    3. 2 measured rounds, each one 16-group burst that fences every key,
+       held exactly (``EdgeRun.run_rounds``): 512 upstream subscriptions an
+       edge and 2,048 in the server's index, every expected delivery
+       arrived once, every key one version up at the server's value, no
+       eviction, no per-key re-read and no upstream RPC, every fence a
+       block hit. The last burst is profiled.
+    4. The gates (encodes between the keys and the fanned versions,
+       deliveries per encode above the floor) and the smoke leg: a real
+       ``EdgeHttpServer`` with 2 SSE consumers over TCP loopback, one
+       burst, a ``/metrics`` scrape with ``fusion_edge_sessions``, a
+       non-empty ``fusion_edge_delivery_ms`` and 2,048 upstream
+       subscriptions, and one consumer through the pool's listener. The
+       WebSocket leg runs only where ``websockets`` is installed.
+
+    One ``edge_10m_round`` line a round and an ``edge_10m`` summary, each
+    with the card's name and power limit."""
+    return asyncio.run(_edge_10m(device, card, live))
+
+
+async def _edge_10m(device, card: str, live: dict) -> dict:
+    import torch
+
+    from stl_fusion_tpu_torch.edge_path import EdgeRun, port_api
+
+    ctx = live["ctx"]
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    prof = {}
+
+    def around_burst(rnd, fn):
+        if not (cuda and rnd == EDGE_ROUNDS - 1):
+            return fn()
+        wall, by_name, calls = profile_device(device, lambda: prof.update(counts=fn()))
+        dev_ms = sum(v["ms"] for v in by_name.values())
+        prof.update(round=rnd, wall_ms=wall, device_ms=dev_ms, idle_share=1 - dev_ms / wall,
+                    device_calls=calls,
+                    topo_sweep=kernel_calls(by_name, SYMBOLS["topo_sweep"]),
+                    lane_finish=kernel_calls(by_name, SYMBOLS["lane_finish"]),
+                    top_kernels=dict(sorted(by_name.items(), key=lambda kv: -kv[1]["ms"])[:6]))
+        return prof.pop("counts")
+
+    run = EdgeRun(port_api(device), ctx, edge_nodes=EDGE_NODES, sessions=EDGE_SESSIONS,
+                  keys=EDGE_KEYS, keys_per_session=EDGE_KEYS_PER_SESSION, zipf=EDGE_ZIPF,
+                  groups=EDGE_GROUPS, seeds_per_group=EDGE_SEEDS_PER_GROUP,
+                  workers=EDGE_WORKERS, fan_workers=EDGE_FAN_WORKERS,
+                  value_plane="block", accept_plane="send_fds", around_burst=around_burst)
+    try:
+        start = await run.start()
+        rec = await run.run_rounds(EDGE_ROUNDS)
+        for r in rec["rounds"]:
+            line = {"phase": "edge_10m_round", "card": card, **r}
+            if r["round"] == EDGE_ROUNDS - 1:
+                line["burst_profile"] = {k: v for k, v in prof.items() if k != "top_kernels"}
+            emit(line)
+        gates = await run.gates()
+        smoke = await run.smoke()
+    finally:
+        await run.close()
+    last = rec["rounds"][-1]
+    out = {"phase": "edge_10m", "card": card, "graph_nodes": run.n,
+           "edge_nodes": EDGE_NODES, "workers_per_edge": EDGE_WORKERS,
+           "fan_workers": EDGE_FAN_WORKERS, "sessions": start["subscribers"],
+           "sessions_per_edge": start["sessions_per_edge"], "distinct_keys": EDGE_KEYS,
+           "keys_per_session": EDGE_KEYS_PER_SESSION, "zipf_a": EDGE_ZIPF,
+           "subscriptions": start["subscriptions"], "rounds": EDGE_ROUNDS,
+           "lane_groups": EDGE_GROUPS, "seeds_per_group": EDGE_SEEDS_PER_GROUP,
+           "value_plane": "block", "accept_plane": "send_fds", "wire_codec": True,
+           "reduced": [],
+           "upstream_subs_per_edge": gates["upstream_subs_per_edge"],
+           "server_subscriptions": gates["server_subscriptions"],
+           "deliveries_per_s": rec["fenced_per_s"],
+           "deliveries_per_s_by_round": [r["deliveries_per_s"] for r in rec["rounds"]],
+           "fenced_total": rec["fenced_total"], "fanout_s": rec["fanout_s"],
+           "system_delivery_ms_p50_p99": last["system_delivery_ms_p50_p99"],
+           "system_delivery_ms": last["system_delivery_ms"],
+           "harness_delivery_ms_p50_p99": last["harness_delivery_ms_p50_p99"],
+           "worker_done_ms": last["worker_done_ms"],
+           "burst_host_ms": [r["burst_ms"] for r in rec["rounds"]],
+           "burst_inv": [r["inv"] for r in rec["rounds"]],
+           "burst_profile": prof,
+           "upstream_rpcs_per_burst": gates["upstream_rpcs_per_burst"],
+           "block_hit_ratio": gates["block_hit_ratio"],
+           "frames_encoded": gates["frames_encoded"], "fanned_versions": gates["fanned_versions"],
+           "deliveries_total": gates["deliveries_total"], "encode_ratio": gates["encode_ratio"],
+           "encode_ratio_floor": gates["encode_ratio_floor"], "evictions": gates["evictions"],
+           "publisher": gates["publisher"], "per_edge_rss_mb": start["per_edge_rss_mb"],
+           "per_worker_rss_mb": gates["per_worker_rss_mb"],
+           "subscribe_s": start["subscribe_s"], "attach_s": start["attach_s"],
+           "warm_burst_s": start["warm_burst_s"], "smoke": smoke,
+           "ws_leg": smoke["ws_leg"], "dispatches": run.dispatches,
+           "phase_s": time.perf_counter() - t_phase,
+           "max_memory_allocated": torch.cuda.max_memory_allocated() if cuda else None}
+    emit(out)
+    return out
+
+
 def sweep_bytes(graph, words: int, start_level: int, seeded: bool, levels=None) -> int:
     """Bytes a sweep (or the ``levels`` range of one) must move: each
     gathered row's in_src and edge_epoch rows and epoch, each row's
@@ -3967,8 +4106,15 @@ def _main(torch, device, dev, work, opc_mod, wave_mod, rag_mod, tpw_mod, brf_mod
     _, fanoutd = drive("fanout", lambda: phase_fanout(device, dev["nvidia_smi"], live),
                        ("topo_sweep", "lane_finish", "block_refresh"),
                        absent=("wave_expand.all_forms", "or_popcount", "packed_pull"))
+    # the edge tier's waves: the warm and measured lane bursts and the smoke
+    # burst the topo sweep and lane finish, each round's refresh the block
+    # refresh, the value publisher's recomputes of the fenced keys (scalar
+    # reads, expanded at the next flush as host-led marks) the mirrors
+    _, edged = drive("edge", lambda: phase_edge(device, dev["nvidia_smi"], live),
+                     ("topo_sweep", "lane_finish", "block_refresh"),
+                     absent=("wave_expand.all_forms", "or_popcount", "packed_pull"))
     main_launches = {name: sum(p[name] for p in (dense, sharded, mirror, packedd, churned, lived,
-                                                 live_srd, meshd, writed, fanoutd))
+                                                 live_srd, meshd, writed, fanoutd, edged))
                      for name in dense}
     kernels = phase_kernels(device, main_launches, level, sg, topo, churn, live, packed,
                             dev["nvidia_smi"])

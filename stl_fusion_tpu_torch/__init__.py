@@ -8,7 +8,9 @@ and its packed mesh wave (``parallel``), the twin of ``bench.py``'s
 single-chip and mesh legs (``bench``), and the write path: the command
 pipeline (``commands`` + ``operations``), the durable operation log and
 its multi-host reader (``oplog``) and graph and hub snapshots
-(``checkpoint``), with hand-written Hopper kernels (``csrc/``). Module names and layout
+(``checkpoint``), the distribution core (``rpc``, ``client``,
+``testing``) and the edge tier (``edge``, ``ext``, the HTTP gateway), with
+hand-written Hopper kernels (``csrc/``). Module names and layout
 follow the JAX package so each counterpart is easy to find.
 
 Entry points run on the CUDA device unless the caller passes

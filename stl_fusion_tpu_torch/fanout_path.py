@@ -142,6 +142,37 @@ async def settle(seconds: float = 0.05) -> None:
         await asyncio.sleep(0.005)
 
 
+def dispatch_mark(backend) -> tuple:
+    """Where the backend's wave profiler stands, for :func:`dispatches_since`."""
+    prof = backend.profiler
+    return prof.waves_recorded, prof.flushes_recorded, backend.waves_run
+
+
+def dispatches_since(backend, mark: tuple, into: Optional[dict] = None) -> dict:
+    """The backend's device waves since ``mark`` (added to ``into``), from
+    its wave profiler: the journal flushes replayed, the waves recorded, the
+    logical waves run, and for each wave kind (``lanes``, ``union``,
+    ``icasc`` — a flush's expansion of host-led marks —, ...) its
+    dispatches, seeds and newly invalid rows. ``kinds`` is None when the
+    profiler's ring no longer holds every wave since ``mark``."""
+    prof = backend.profiler
+    waves, flushes, run = mark
+    new = prof.waves_recorded - waves
+    out = into if into is not None else {"flushes": 0, "waves": 0, "waves_run": 0, "kinds": {}}
+    out["flushes"] += prof.flushes_recorded - flushes
+    out["waves"] += new
+    out["waves_run"] += backend.waves_run - run
+    if new > len(prof.recent()):
+        out["kinds"] = None
+    elif out["kinds"] is not None:
+        for rec in prof.recent(new) if new else []:
+            k = out["kinds"].setdefault(rec["kind"], {"dispatches": 0, "seeds": 0, "newly": 0})
+            k["dispatches"] += 1
+            k["seeds"] += rec["seeds"]
+            k["newly"] += rec["newly"]
+    return out
+
+
 class Observer:
     """Counts client-observed fences with SYNC callbacks (the callback runs
     inside the client node's invalidation, the moment a reader would see
@@ -330,34 +361,10 @@ class FanoutRun:
         raise AssertionError(f"fanout: {table.stale_count()} rows stale after settling")
 
     def dispatch_mark(self) -> tuple:
-        prof = self.backend.profiler
-        return prof.waves_recorded, prof.flushes_recorded, self.backend.waves_run
+        return dispatch_mark(self.backend)
 
     def dispatches_since(self, mark: tuple, into: Optional[dict] = None) -> dict:
-        """The backend's device waves since ``mark`` (added to ``into``),
-        from its wave profiler: the journal flushes replayed, the waves
-        recorded, the logical waves run, and for each wave kind (``lanes``,
-        ``union``, ``icasc`` — a flush's expansion of host-led marks —, ...)
-        its dispatches, seeds and newly invalid rows. ``kinds`` is None
-        when the profiler's ring no longer holds every wave since ``mark``."""
-        prof = self.backend.profiler
-        waves, flushes, run = mark
-        new = prof.waves_recorded - waves
-        out = into if into is not None else {"flushes": 0, "waves": 0, "waves_run": 0,
-                                             "kinds": {}}
-        out["flushes"] += prof.flushes_recorded - flushes
-        out["waves"] += new
-        out["waves_run"] += self.backend.waves_run - run
-        if new > len(prof.recent()):
-            out["kinds"] = None
-        elif out["kinds"] is not None:
-            for rec in prof.recent(new) if new else []:
-                k = out["kinds"].setdefault(rec["kind"], {"dispatches": 0, "seeds": 0,
-                                                          "newly": 0})
-                k["dispatches"] += 1
-                k["seeds"] += rec["seeds"]
-                k["newly"] += rec["newly"]
-        return out
+        return dispatches_since(self.backend, mark, into)
 
     def delivery_hist(self):
         """The system's own ``fusion_e2e_delivery_ms`` histogram (server

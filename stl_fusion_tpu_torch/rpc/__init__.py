@@ -1,8 +1,4 @@
-"""RPC layer — distributed communication backend (SURVEY.md §2.4).
-
-The HTTP gateway (``http_gateway.py``) and the session middleware
-(``middleware.py``) import ``ext/session`` and are not ported yet
-(ROADMAP A.7, second part)."""
+"""RPC layer — distributed communication backend (SURVEY.md §2.4)."""
 from .calls import RpcCallTypeRegistry, RpcInboundCall, RpcOutboundCall
 from .fanout import (
     ComputeFanoutIndex,
@@ -15,6 +11,13 @@ from .outbox import PeerOutbox
 from .message import COMPUTE_SYSTEM_SERVICE, SYSTEM_SERVICE, VERSION_HEADER, RpcMessage
 from .peer import ConnectionState, RpcClientPeer, RpcPeer, RpcServerPeer
 from .registry import RpcMethodDef, RpcServiceDef, RpcServiceRegistry, rpc_no_wait
+from .http_gateway import FusionHttpServer, HttpSessionMiddleware, RestClient, RestError
+from .middleware import (
+    bind_peer_session,
+    call_logging_middleware,
+    default_session_replacer_middleware,
+    peer_session,
+)
 from .testing import RpcMultiServerTestTransport, RpcTestTransport
 
 __all__ = [
@@ -43,4 +46,12 @@ __all__ = [
     "rpc_no_wait",
     "RpcTestTransport",
     "RpcMultiServerTestTransport",
+    "FusionHttpServer",
+    "HttpSessionMiddleware",
+    "RestClient",
+    "RestError",
+    "bind_peer_session",
+    "call_logging_middleware",
+    "default_session_replacer_middleware",
+    "peer_session",
 ]

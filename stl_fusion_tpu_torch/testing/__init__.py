@@ -86,11 +86,6 @@ class TestWebHost:
     __test__ = False  # pytest: not a test class despite the Test* name
 
     def __init__(self, use_http_gateway: bool = False):
-        if use_http_gateway:
-            raise NotImplementedError(
-                "TestWebHost(use_http_gateway=True) needs rpc/http_gateway.py, "
-                "which is not ported yet (ROADMAP A.7, second part)"
-            )
         self.fusion = FusionHub()
         self.rpc = RpcHub("test-server")
         install_compute_call_type(self.rpc)
@@ -105,6 +100,10 @@ class TestWebHost:
         from ..rpc.websocket import RpcWebSocketServer
 
         self.ws_server = await RpcWebSocketServer(self.rpc).start()
+        if self.use_http_gateway:
+            from ..rpc.http_gateway import FusionHttpServer
+
+            self.http_server = await FusionHttpServer(self.rpc).start()
         self._started = True
         return self
 

@@ -30,8 +30,6 @@ UNPORTED_MODULES = {
     "diagnostics.monitor": "A.8",
     "diagnostics.slo": "A.8",
     "resilience.chaos": "A.8",
-    "rpc.http_gateway": "A.7",
-    "rpc.middleware": "A.7",
     "resilience.breaker": "A.8",
     "resilience.watchdog": "A.8",
     "parallel.routed_wave": "A.9",
@@ -48,8 +46,6 @@ UNPORTED_MODULES = {
 #: graph packer: the port builds ``csrc/graphpack.cpp`` through
 #: ``ops/_build.py::load_host`` instead)
 UNPORTED_PACKAGES = {
-    "edge": "A.7",
-    "ext": "A.7",
     "ui": "A.7",
     "native": "ported as ops/_build.py::load_host",
 }

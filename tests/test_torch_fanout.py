@@ -12,10 +12,15 @@ package's.
   does. Left out: the two chaos cases (``resilience/chaos.py`` and
   ``validate_hub``, A.8).
 - ``tests/test_value_plane.py`` drives the value plane through
-  ``edge.EdgeNode`` (ROADMAP A.7, second part), so its server half runs
-  here through the client's ``capture_batch`` with publish entries and a
-  recording ``value_plane_client``: the decoded value blocks, the
-  fallback fences, the publisher's and the index's counters must be EQUAL.
+  ``edge.EdgeNode``: each of its cases but the chaos one
+  (``resilience.ChaosPolicy``, ROADMAP A.8) runs on both packages with the
+  real ``EdgeNode`` (``test_torch_edge.run_case``: the reference's
+  assertions, equal call results and errors, and equal hub and edge node
+  counters where the traffic does not depend on timing). Its server half
+  also runs here through the client's ``capture_batch`` with publish
+  entries and a recording ``value_plane_client``: the decoded value
+  blocks, the fallback fences, the publisher's and the index's counters
+  must be EQUAL.
 - The twin at 20,000 nodes through both packages
   (``run_fanout(api=FanoutApi(<jax modules>))``): the fenced totals,
   ``burst_inv_total``, the frames of each mode, the union and the host-led
@@ -43,6 +48,7 @@ import stl_fusion_tpu_torch.rpc as prpc
 import stl_fusion_tpu_torch.utils.serialization as pser
 from stl_fusion_tpu_torch.fanout_path import FanoutApi, port_api, run_fanout
 from stl_fusion_tpu_torch.graph.synthetic import power_law_dag
+from test_torch_edge import run_case
 from test_torch_rpc import run_both
 
 #: the port has no ``FusionMonitor`` yet (A.8): its fan-out report is the
@@ -270,6 +276,8 @@ def test_block_bytes_bound_chunks_frames():
         await _arm(s, [3, 6, 9])
         s["backend"].cascade_rows_batch(s["block"], [0])
         await until(lambda: s["publisher"].stats()["blocks_sent"] == 3)
+        # sent is not yet received: the third frame may still be on the wire
+        await until(lambda: len(s["stub"].blocks) == 3)
         assert all(len(b) == 1 for b in s["stub"].blocks)
         return observe(s)
     both_value_plane(scenario, max_block_bytes=1)
@@ -290,6 +298,24 @@ def test_superseded_standing_sub_is_retired_on_rearm():
         assert cid == again[0].call.call_id
         return observe(s)
     both_value_plane(scenario)
+
+
+#: the port has no ``ChaosPolicy`` yet (A.8): its import goes, and the
+#: chaos case waits for that slice
+NO_CHAOS = ("from stl_fusion_tpu.resilience import ChaosPolicy\n", "")
+
+
+@pytest.mark.parametrize("test", [
+    "test_partial_batch_failure_falls_back_per_key_and_is_counted",
+    "test_value_block_serves_wave_with_zero_upstream_rpcs", "test_stale_block_entry_is_seq_gated",
+    "test_block_budget_eviction_falls_back_to_reread",
+    "test_host_led_invalidation_drops_standing_and_fences_plain",
+    "test_wave_then_host_led_reshard_style_fence_falls_back",
+    "test_reconnect_style_reread_supersedes_old_call_and_standing",
+    "test_reshard_repin_invalidates_exactly_moved_block_entries",
+])
+def test_value_plane_edge_case(test):
+    run_case("test_value_plane", test, patches=[NO_CHAOS])
 
 
 # ---------------------------------------------------------------- the twin

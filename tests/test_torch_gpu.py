@@ -1189,3 +1189,24 @@ def test_fanout_index_on_card_fences_exactly_the_union(card):
             "coalesced_batch_frames", "coalesced_invalidations_posted", "coalesced_dispatches")
     assert [{k: r[k] for k in keys} for r in got][0] == {k: got[1][k] for k in keys}
     assert got[0]["coalesced_clients_fenced_total"] == 16
+
+
+def test_edge_twin_on_card_matches_the_cpu(card):
+    """The edge twin at small size on a card backend (2 edges with one
+    delivery worker each, 2,000 sessions over 64 keys, 2 rounds, the block
+    value plane, the smoke leg): its deliveries a round, subscriptions,
+    encodes, block hits and device waves by kind equal the same run's on the
+    CPU."""
+    from stl_fusion_tpu_torch.edge_path import run_edge
+
+    edges = power_law_dag(20_000, avg_degree=3, seed=7)
+    shape = dict(n_nodes=20_000, edge_nodes=2, sessions=2_000, keys=64, workers=1, edges=edges)
+    got = [run_edge(**shape, device=dev) for dev in (card, "cpu")]
+    keys = ("subscriptions", "upstream_subs_per_edge", "server_subscriptions", "fenced_total",
+            "frames_encoded", "block_hits_total", "upstream_rpcs_total", "evictions",
+            "dispatches")
+    assert [{k: r[k] for k in keys} for r in got][0] == {k: got[1][k] for k in keys}
+    assert ([(x["inv"], x["deliveries"], x["upstream"]) for x in got[0]["rounds"]]
+            == [(x["inv"], x["deliveries"], x["upstream"]) for x in got[1]["rounds"]])
+    assert got[0]["server_subscriptions"] == 128 and got[0]["upstream_rpcs_per_burst"] == 0
+    assert got[0]["dispatches"]["rounds"]["kinds"]["lanes"]["dispatches"] == 2

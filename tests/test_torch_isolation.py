@@ -112,3 +112,51 @@ def test_scan_covers_the_resident_live_loop_slice():
     for rel in new:
         roots = {root for _line, root in _import_roots(PKG / rel)}
         assert roots and not roots & FORBIDDEN, (rel, roots)
+
+
+def test_scan_covers_the_edge_tier_slice():
+    """The import scan reaches the edge tier: the gateway and the session
+    middleware, ``ext/`` and ``edge/``, and the edge twin."""
+    scanned = {f.relative_to(PKG).as_posix() for f in PKG.rglob("*.py")}
+    new = {"rpc/http_gateway.py", "rpc/middleware.py", "edge_path.py"} | {
+        f"ext/{m}.py" for m in ("__init__", "auth", "fusion_time", "kv_store", "multitenancy",
+                                "peer_monitor", "plugins", "server_auth", "session", "streams")
+    } | {f"edge/{m}.py" for m in ("__init__", "admission", "gateway", "server", "session",
+                                  "worker_pool")}
+    assert new <= scanned
+    for rel in new:
+        roots = {root for _line, root in _import_roots(PKG / rel)}
+        assert not roots & FORBIDDEN, (rel, roots)
+
+
+def test_edge_worker_entry_imports_no_package_and_no_torch():
+    """``edge/worker_pool.py`` runs as ``python worker_pool.py --worker``: the
+    script's top level imports only the standard library, and every import
+    of the package lies in the parent's ``EdgeWorkerPool``, never in the
+    worker's code. Run as a script, it loads neither the package nor
+    ``torch``, ``numpy`` or JAX."""
+    import subprocess
+    import sys
+
+    path = PKG / "edge" / "worker_pool.py"
+    tree = ast.parse(path.read_text())
+    for node in tree.body:
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            assert not (isinstance(node, ast.ImportFrom) and node.level), node.lineno
+            names = [a.name for a in node.names] if isinstance(node, ast.Import) else [node.module]
+            assert not {n.split(".")[0] for n in names} & {"torch", "numpy", *FORBIDDEN}
+        for sub in ast.walk(node):
+            if isinstance(sub, ast.ImportFrom) and sub.level:
+                assert isinstance(node, ast.ClassDef) and node.name == "EdgeWorkerPool", (
+                    f"worker_pool.py:{sub.lineno} imports the package outside EdgeWorkerPool")
+    probe = ("import runpy, sys\n"
+             "sys.argv = ['worker_pool.py']\n"
+             "try:\n"
+             f"    runpy.run_path({str(path)!r}, run_name='__main__')\n"
+             "except SystemExit:\n"
+             "    pass\n"
+             "print(sorted({m.split('.')[0] for m in sys.modules} & {'torch', 'numpy', 'jax', "
+             "'stl_fusion_tpu', 'stl_fusion_tpu_torch'}))\n")
+    out = subprocess.run([sys.executable, "-c", probe], capture_output=True, text=True,
+                         timeout=60, check=True)
+    assert out.stdout.strip() == "[]", out

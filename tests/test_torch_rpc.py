@@ -13,11 +13,11 @@ normalised) and every call error (by type), and, where the case's traffic
 does not depend on timing, each hub's counters (``fanout_stats``: messages
 sent, invalidations posted and coalesced, batch frames and keys).
 
-Left out, with their slices: ``test_default_session_replacer_middleware``
-(``rpc/middleware.py`` and ``ext/``, ROADMAP A.7, second part),
-``test_test_web_host_http_gateway`` (``rpc/http_gateway.py``, the same) and
+``test_default_session_replacer_middleware`` and
+``test_test_web_host_http_gateway`` run in ``tests/test_torch_ext.py``, with
+the port's ``ext/`` and gateway. Left out, with its slice:
 ``test_websocket_chaos_calls_and_invalidation_survive`` (``resilience/
-chaos.py``, A.8). The reference's TCP server never returns from ``stop()``
+chaos.py``, ROADMAP A.8). The reference's TCP server never returns from ``stop()``
 on Python 3.12.1 and later (``asyncio.Server.wait_closed`` waits for every
 connection, and each connection's handler waits for its socket), so its
 runs here stop the server's peers first (:func:`_jax_tcp_stop`); the port's
@@ -268,11 +268,21 @@ def test_testing_utils_case(test, monkeypatch):
     run_both("test_testing_utils", test, stats=False, monkeypatch=monkeypatch)
 
 
-def test_web_host_http_gateway_waits_for_its_slice():
+async def test_web_host_http_gateway_waits_for_its_slice():
+    """Its slice is ported: ``TestWebHost(use_http_gateway=True)`` serves
+    the host's services over the port's REST gateway."""
+    pytest.importorskip("websockets")  # TestWebHost binds a real ws listener
+    from stl_fusion_tpu_torch.rpc.http_gateway import FusionHttpServer, RestClient
     from stl_fusion_tpu_torch.testing import TestWebHost
 
-    with pytest.raises(NotImplementedError, match="A.7"):
-        TestWebHost(use_http_gateway=True)
+    class Echo:
+        async def echo(self, text):
+            return f"rest:{text}"
+
+    async with TestWebHost(use_http_gateway=True) as host:
+        assert isinstance(host.http_server, FusionHttpServer)
+        host.add_service("echo", Echo())
+        assert await RestClient(host.http_url, "echo").echo("x") == "rest:x"
 
 
 def test_set_chaos_waits_for_its_slice():
