@@ -146,6 +146,21 @@ user calls. Phases, each printing one JSON line:
    with SSE consumers over TCP loopback, a ``/metrics`` scrape, one burst,
    the pool's listener); one ``edge_10m_round`` line a round and an
    ``edge_10m`` summary with both delivery clocks;
+10g. ``resilience_10m`` — on the same stack after ``edge_10m``, the wave
+   watchdog (:func:`phase_resilience`): a fused 32-group burst, an
+   injected fault re-run on the split host loop (dense waves on the card,
+   its union that of the fused burst on a snapshot), the oracle-verified
+   re-engagement, a deadline trip and its recovery, a faulted super-round
+   (the block re-staled and refreshed, the rounds eager, 4,096 rows equal
+   to the service's), ``explain`` naming the last burst's cause, the
+   sampled invariant sweeps, the monitor's resilience ledger and the
+   gateway's ``/explain``, ``/health`` and ``/trace`` at 200; every count
+   exact; one ``resilience_10m`` line;
+10h. ``read_1k`` — the twin of ``perf/read_throughput.py``
+   (``stl_fusion_tpu_torch/read_throughput.py``, :func:`phase_read`): 1000
+   users over sqlite, every mode with its tables on the card (the
+   host-only ones at ``--quick``'s counts), each passing its exactness
+   check; the device chain against its bound; one ``read_1k`` line;
 11. ``kernels`` — every kernel form against its plain PyTorch version on the
    card, exact: ``or_popcount``'s four forms (merge, gate, delta at n = 7,
    128, 40,000 and 524,289 words, aliased as the main path calls them, and
@@ -185,7 +200,7 @@ which loads the entry; the loaded tables must equal the built ones, and the
 phase's checks run on the loaded mirror (``mirror_cache``: the cold build's
 and the load's seconds).
 
-The main path is eleven paths, each driven with every kernel's launch count
+The main path is thirteen paths, each driven with every kernel's launch count
 set to 0 just before it and read just after: phases 3-4 (the dense wave,
 with HelloCart's mesh lane burst) must launch each ``or_popcount`` form
 and ``wave_expand_merge``, phase 5 (the sharded wave) ``or_popcount``'s
@@ -200,7 +215,10 @@ replay adds the launches its capture recorded) the same three, phase
 write path) those of the lane and mesh bursts and the restored graph's
 dense wave, and phases 10e (the fan-out) and 10f (the edge tier)
 ``topo_sweep``, ``lane_finish`` and ``block_refresh``, and no
-``wave_expand``, ``or_popcount`` or ``packed_pull``. Any
+``wave_expand``, ``or_popcount`` or ``packed_pull``, phase 10g (the
+watchdog) those three and the split host loop's ``wave_expand_merge`` and
+``or_popcount`` merge and delta, and no ``packed_pull``; phase 10h (the
+read twin) runs torch's gathers and requires no hand-written kernel. Any
 failure raises and the script exits non-zero. The last lines are the kernel
 summary (the forms the main path runs), the ``nvidia-smi`` name and power
 limit, and
@@ -2837,6 +2855,475 @@ async def _edge_10m(device, card: str, live: dict) -> dict:
     return out
 
 
+RES_GROUPS = 32  # a fanout_10m-shaped lane burst of tail-row keys
+RES_KEYS_PER_GROUP = 16
+RES_KEY_SEED = 1414
+RES_DEADLINE_S = 5.0  # the watchdog's default deadline
+RES_RECOVERY_BURSTS = 2
+RES_CHECK_ROWS = 4096
+RES_SWEEP_SAMPLE = 0.01  # the auditor's sampled sweep shape
+
+
+def phase_resilience(device, card: str, live: dict) -> dict:
+    """``resilience_10m``: the wave watchdog (``resilience/watchdog.py``)
+    attached to the live stack :func:`phase_edge` left, with
+    ``recovery_bursts=2``. Every burst is a 32-group ``cascade_rows_lanes``
+    of 16 tail rows a group (fresh rows a burst), and the block is refreshed
+    on the device after each one.
+
+    1. A fused burst: its union and lanes 0 and 31 equal dense waves from
+       the same state (the check waves' launches rolled back).
+    2. ``inject_fault_next()``, then a burst: it re-runs on the split host
+       loop (one dense ``run_waves_union(mirror="off")`` a group on the
+       card); its union equals the fused union of the same seeds on a
+       snapshot, its first group's count the fused one, its counts sum to
+       the union and none exceeds the fused lane's (the sequential
+       semantics).
+    3. The second host burst (profiled), then a fused burst the oracle
+       verifies against a host CSR BFS over the live edge set: one
+       re-engagement, no mismatch.
+    4. A deadline trip (``deadline_s = 0`` for one fused burst, whose
+       result stands and equals the dense union), then two host bursts and
+       a verified fused burst again.
+    5. ``inject_fault_next()`` before one super-round on the live program:
+       one super-round fault, the whole block re-staled and refreshed
+       (``block_refresh``), its rounds eager under the degraded watchdog
+       (two on the host loop, the third fused and verified); then 4,096
+       random block rows read equal to the service's values.
+    6. A watched scalar twin of a seed row, then a fused burst: ``explain``
+       of it names the burst's cause id and wave. The invariant sweeps in
+       the auditor's sampled shape (``validate_hub``, ``validate_mirror``
+       at 1 %) are clean. ``FusionMonitor.report()``'s resilience ledger
+       equals the watchdog's counters. A ``FusionHttpServer`` on loopback
+       over the live hub answers ``/explain?key=``, ``/health`` and
+       ``/trace?cause=`` 200 (a single-card lane burst records no trace
+       segment, so the phase records the explained burst's host span under
+       its cause first).
+
+    Every count is exact: faults, fallbacks, deadline trips, oracle checks
+    and re-engagements equal what the phase injected, with no mismatch. One
+    ``resilience_10m`` line with the card's name and power limit."""
+    return asyncio.run(_resilience_10m(device, card, live))
+
+
+async def _resilience_10m(device, card: str, live: dict) -> dict:
+    import urllib.parse
+
+    import numpy as np
+    import torch
+
+    from stl_fusion_tpu_torch.core import capture, set_default_hub
+    from stl_fusion_tpu_torch.diagnostics import (
+        FusionMonitor,
+        explain,
+        global_mesh_trace,
+        validate_hub,
+        validate_mirror,
+    )
+    from stl_fusion_tpu_torch.ops import block_refresh as brf
+    from stl_fusion_tpu_torch.ops.bitops import unpack_words_host
+    from stl_fusion_tpu_torch.resilience import ResilienceEvents, WaveWatchdog
+    from stl_fusion_tpu_torch.rpc import RpcHub
+    from stl_fusion_tpu_torch.rpc.http_gateway import FusionHttpServer
+
+    ctx = live["ctx"]
+    backend, block, table, svc, n = ctx["backend"], ctx["block"], ctx["table"], ctx["svc"], ctx["n"]
+    hub, dg = backend.hub, backend.graph
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(RES_KEY_SEED)
+
+    def fail(what):
+        raise AssertionError(f"resilience_10m: {what}")
+
+    def checked(fn):
+        saved = _launch_state()
+        try:
+            return fn()
+        finally:
+            _restore_launches(saved)
+
+    def graph_state():
+        return dg.device_arrays().invalid.clone(), dg._h_invalid.copy()
+
+    def set_graph_state(st):
+        dg.device_arrays().invalid.copy_(st[0])
+        dg._h_invalid[:] = st[1]
+
+    def under(st, fn):
+        """``fn()`` on the graph state ``st``, then the current state back;
+        its launches rolled back (a check, not the path)."""
+        now = graph_state()
+        set_graph_state(st)
+        try:
+            return checked(fn)
+        finally:
+            set_graph_state(now)
+
+    journal_kinds: dict = {}
+
+    def settle():
+        """The block refreshed and the journal flushed empty, with the
+        watchdog detached: the flush's host-led expansions are the
+        backend's upkeep, not bursts the phase counts."""
+        wd_, backend.watchdog = backend.watchdog, None
+        try:
+            backend._drain_nonblocking()
+            for _ in range(8):
+                for kind, _v in backend._journal:
+                    journal_kinds[kind] = journal_kinds.get(kind, 0) + 1
+                backend.flush()
+                backend.refresh_block_on_device(block)
+                if not backend._journal:
+                    return
+            fail(f"the journal does not settle: {[k for k, _v in backend._journal][:8]}")
+        finally:
+            backend.watchdog = wd_
+
+    def seeds_of(groups):
+        return [(block.base + g).tolist() for g in groups]
+
+    redraws = [0]
+
+    def new_groups():
+        """32 groups of 16 fresh tail rows whose closure holds no watched
+        node: a watched node's eager invalidation cascades host-side to
+        its dependents, whose marks the next flush expands through the
+        watchdog (an extra dispatch the phase did not make)."""
+        nn = dg.n_nodes
+        for _ in range(50):
+            rows = n - 1 - rng.choice(n // 4, size=RES_GROUPS * RES_KEYS_PER_GROUP, replace=False)
+            groups = [rows[i::RES_GROUPS].astype(np.int64) for i in range(RES_GROUPS)]
+            if not backend._watched[:nn].any():
+                return groups
+            _c, mask = under(graph_state(), lambda: dg.run_waves_lanes(seeds_of(groups)))
+            if not (mask[:nn] & backend._watched[:nn]).any():
+                return groups
+            redraws[0] += 1
+        fail("no draw of 512 tail rows avoids every watched node's closure")
+
+    def burst(groups):
+        if backend._journal:
+            fail(f"the journal holds {[k for k, _v in backend._journal][:8]} before a burst")
+        pre = graph_state()
+        t = time.perf_counter()
+        counts = backend.cascade_rows_lanes(block, groups)
+        sync(device)
+        ms = (time.perf_counter() - t) * 1e3
+        nn = dg.n_nodes
+        union = dg._h_invalid[:nn] & ~pre[1][:nn]
+        return np.asarray(counts, dtype=np.int64), union, ms, pre
+
+    def dense_exact(what, groups, counts, union, pre, lanes=(0, 31)):
+        seeds = seeds_of(groups)
+        c, ids = under(pre, lambda: dg.run_waves_union([sum(seeds, [])], mirror="off"))
+        if c != int(union.sum()) or not np.array_equal(ids, np.nonzero(union)[0]):
+            fail(f"{what}: the union ({int(union.sum())}) differs from the dense union ({c})")
+        for lane in lanes:
+            c, _ = under(pre, lambda: dg.run_waves_union([seeds[lane]], mirror="off"))
+            if c != int(counts[lane]):
+                fail(f"{what}: lane {lane} counts {int(counts[lane])}, dense {c}")
+        return int(union.sum())
+
+    settle()
+    words = dg.device_arrays().invalid.cpu().numpy()
+    if not np.array_equal(unpack_words_host(words, len(dg._h_invalid)), dg._h_invalid):
+        fail("the host invalid mirror lags the device words before the watchdog attaches")
+    events = ResilienceEvents()
+    wd = backend.attach_watchdog(WaveWatchdog(deadline_s=RES_DEADLINE_S,
+                                              recovery_bursts=RES_RECOVERY_BURSTS, events=events))
+    want = {"faults": 0, "fallbacks": 0, "deadline_trips": 0, "reengages": 0,
+            "oracle_checks": 0, "oracle_mismatches": 0}
+    oracle_s = []
+    real_verify = wd._oracle_verify
+
+    def timed_verify(*args):
+        t = time.perf_counter()
+        real_verify(*args)
+        oracle_s.append(time.perf_counter() - t)
+
+    wd._oracle_verify = timed_verify
+
+    def expect(what, mode):
+        got = {k: v for k, v in wd.snapshot().items() if k in want}
+        if got != want or wd.mode != mode:
+            fail(f"{what}: the watchdog reads {wd.snapshot()}, expected {want} in mode {mode}")
+
+    rec: dict = {"phase": "resilience_10m", "card": card, "graph_nodes": n,
+                 "groups": RES_GROUPS, "keys_per_group": RES_KEYS_PER_GROUP,
+                 "recovery_bursts": RES_RECOVERY_BURSTS, "deadline_s": RES_DEADLINE_S,
+                 "watched_nodes": int(backend._watched[:dg.n_nodes].sum()),
+                 "newly_hooks": len(backend.newly_hooks),
+                 "wave_invalidate_hooks": len(table.on_wave_invalidate)}
+    try:
+        # 1. a fused burst
+        g1 = new_groups()
+        counts, union, ms, pre = burst(g1)
+        expect("the fused burst", wd.MODE_FUSED)
+        rec["fused_ms"], rec["fused_inv"] = ms, dense_exact("the fused burst", g1, counts, union, pre)
+        settle()
+
+        # 2. an injected fault: the split host loop
+        g2 = new_groups()
+        snap = graph_state()
+        f_counts, f_mask = under(snap, lambda: dg.run_waves_lanes(seeds_of(g2)))
+        f_union = f_mask[: dg.n_nodes]
+        wd.inject_fault_next()
+        counts, union, ms, pre = burst(g2)
+        want.update(faults=1, fallbacks=1)
+        expect("the faulted burst", wd.MODE_HOST)
+        if not np.array_equal(union, f_union):
+            fail(f"the degraded burst's union ({int(union.sum())}) differs from the fused union "
+                 f"of the same seeds ({int(f_union.sum())})")
+        if (int(counts[0]) != int(f_counts[0]) or int(counts.sum()) != int(union.sum())
+                or (counts > np.asarray(f_counts)).any()):
+            fail(f"the degraded counts {counts.tolist()} break the sequential semantics "
+                 f"(fused {np.asarray(f_counts).tolist()})")
+        rec["degraded_ms"], rec["degraded_inv"] = [ms], [int(union.sum())]
+        settle()
+
+        # 3. recovery: the second host burst (profiled), then the oracle
+        g3 = new_groups()
+        prof = {}
+        if cuda:
+            out = {}
+            wall, by_name, calls = profile_device(device, lambda: out.update(r=burst(g3)))
+            counts, union, ms, pre = out["r"]
+            dev_ms = sum(v["ms"] for v in by_name.values())
+            prof = {"wall_ms": wall, "device_ms": dev_ms, "device_share": dev_ms / wall,
+                    "idle_share": 1 - dev_ms / wall, "device_calls": calls,
+                    "wave_expand_merge": kernel_calls(by_name, SYMBOLS["wave_expand_merge"]),
+                    "or_popcount.merge": kernel_calls(by_name, SYMBOLS["or_popcount.merge"]),
+                    "or_popcount.delta": kernel_calls(by_name, SYMBOLS["or_popcount.delta"])}
+        else:
+            counts, union, ms, pre = burst(g3)
+        want.update(fallbacks=2)
+        expect("the second host burst", wd.MODE_FUSED)
+        dense_exact("the second host burst", g3, counts, union, pre, lanes=())
+        rec["degraded_ms"].append(ms)
+        rec["degraded_inv"].append(int(union.sum()))
+        rec["degraded_profile"] = prof
+        settle()
+        g4 = new_groups()
+        counts, union, ms, pre = burst(g4)
+        want.update(reengages=1, oracle_checks=1)
+        expect("the verified burst", wd.MODE_FUSED)
+        rec["verify_ms"] = [ms]
+        dense_exact("the verified burst", g4, counts, union, pre)
+        settle()
+
+        # 4. a deadline trip, then recovery as in 3
+        wd.deadline_s = 0.0
+        g5 = new_groups()
+        counts, union, ms, pre = burst(g5)
+        wd.deadline_s = RES_DEADLINE_S
+        want.update(deadline_trips=1)
+        expect("the deadline trip", wd.MODE_HOST)
+        dense_exact("the too-slow burst", g5, counts, union, pre)
+        rec["deadline_burst_ms"] = ms
+        settle()
+        for i in range(RES_RECOVERY_BURSTS):
+            counts, union, ms, pre = burst(new_groups())
+            want["fallbacks"] += 1
+            rec["degraded_ms"].append(ms)
+            rec["degraded_inv"].append(int(union.sum()))
+            settle()
+        expect("the host bursts after the trip", wd.MODE_FUSED)
+        counts, union, ms, pre = burst(new_groups())
+        want.update(reengages=2, oracle_checks=2)
+        expect("the second verified burst", wd.MODE_FUSED)
+        rec["verify_ms"].append(ms)
+        settle()
+
+        # 5. a super-round fault on the live program
+        prog = backend.super_rounds
+        if prog is None or prog._disposed:
+            prog = backend.enable_super_rounds(block, depth=3, max_words=16)
+        depth = prog.depth
+        faults0, eager0, brf0 = prog.faults, prog.eager_rounds, brf.launches
+        rounds = [new_groups() for _ in range(depth)]
+        wd.inject_fault_next()
+        t = time.perf_counter()
+        ticket = prog.dispatch(prog.stage(rounds))
+        if not ticket.done:
+            prog.drain()
+        sr_ms = (time.perf_counter() - t) * 1e3
+        if not (ticket.done and ticket.fallback) or prog.faults != faults0 + 1:
+            fail(f"the injected super-round fault was not contained as one fault "
+                 f"(faults {prog.faults - faults0}, fallback {ticket.fallback})")
+        if prog.eager_rounds != eager0 + depth:
+            fail(f"the faulted super-round ran {prog.eager_rounds - eager0} eager rounds, "
+                 f"not {depth}")
+        if cuda and brf.launches < brf0 + 1 + depth:
+            fail(f"the fault's re-stale and the eager rounds made {brf.launches - brf0} "
+                 f"block_refresh launches, fewer than {1 + depth}")
+        # the fault degrades; the eager rounds run RECOVERY_BURSTS on the host
+        # loop, then the next one fused and verified; the fault path counts
+        # one more host burst at its end
+        want["faults"] += 1
+        want["fallbacks"] += RES_RECOVERY_BURSTS + 1
+        if depth > RES_RECOVERY_BURSTS:
+            want["reengages"] += 1
+            want["oracle_checks"] += 1
+        expect("the super-round fault", wd.MODE_FUSED)
+        settle()
+        ids = np.sort(rng.choice(n, size=RES_CHECK_ROWS, replace=False))
+        got = table.read_batch(torch.from_numpy(ids.astype(np.int32)).to(device)).cpu().numpy()
+        if not np.array_equal(got, svc.load(ids)):
+            fail(f"{int((got != svc.load(ids)).sum())} of {RES_CHECK_ROWS} random block rows "
+                 f"differ from the service's values after the super-round fault")
+        rec["superround"] = {"depth": depth, "ms": sr_ms, "faults": prog.faults - faults0,
+                             "eager_rounds": prog.eager_rounds - eager0,
+                             "block_refresh_launches": brf.launches - brf0,
+                             "rows_checked": RES_CHECK_ROWS}
+
+        # 6. explain, the sweeps, the monitor and the gateway
+        g = new_groups()
+        row = int(g[0][0])
+        old_hub = set_default_hub(hub)
+        try:
+            twin = await capture(lambda: svc.node(row))
+            twin.on_invalidated(lambda _c: None)  # watched: the wave applies eagerly
+            settle()  # the twin's adoption of its row node
+            t0 = time.perf_counter()
+            counts, union, ms, pre = burst(g)
+            t1 = time.perf_counter()
+        finally:
+            set_default_hub(old_hub)
+        if not twin.is_invalidated:
+            fail(f"the watched twin of seed row {row} was not invalidated by the burst")
+        cause, seq = backend.last_cause_id, backend.last_wave_seq
+        report = explain(twin, hub=hub)
+        inv = report["invalidation"] or {}
+        if inv.get("cause") != cause or (inv.get("wave") or {}).get("seq") != seq or not any(
+                "invalidated by wave" in line for line in report["chain"]):
+            fail(f"explain of row {row} does not name the burst {cause} / wave {seq}: {report}")
+        rec["explain"] = {"row": row, "cause": cause, "wave_seq": seq, "chain": report["chain"]}
+        monitor = FusionMonitor(hub, resilience=events)
+        try:
+            res = monitor.report()["resilience"]
+            ledger = {"wave_fault": wd.faults, "wave_deadline": wd.deadline_trips,
+                      "wave_reengaged": wd.reengages}
+            if {k: res.get(k, 0) for k in ledger} != ledger:
+                fail(f"the monitor's resilience ledger {res} differs from the watchdog's {ledger}")
+            global_mesh_trace().record(cause, "fence_drain", t0, t1)
+            server = FusionHttpServer(RpcHub("resilience-gateway"))
+            server.monitor = monitor
+            await server.start()
+            try:
+                key = urllib.parse.quote(report["key"])
+                routes = {}
+                for path in (f"/explain?key={key}", "/health",
+                             f"/trace?cause={urllib.parse.quote(cause)}"):
+                    status, body = await _http_get("127.0.0.1", server.port, path)
+                    routes[path.split("?")[0]] = status
+                    if not status.endswith(" 200 OK"):
+                        fail(f"GET {path} answered {status}: {body[:300]!r}")
+                    if path.startswith("/explain") and cause.encode() not in body:
+                        fail(f"GET /explain does not name the cause {cause}")
+            finally:
+                await server.stop()
+        finally:
+            monitor.dispose()
+        rec["gateway"] = routes
+        # a block refresh clears a row's device bit while its invalidated
+        # scalar twin waits for its next read, which the mirror sweep's M2
+        # ("host-invalidated implies invalid on the device") reads as an
+        # incoherence: the twins left so (the explained one, the earlier
+        # phases' subscribed keys) are read again, and the stack settled,
+        # until none is left
+        old_hub = set_default_hub(hub)
+        twins_updated = []
+        try:
+            if await svc.node(row) != float(svc.load([row])[0]):
+                fail(f"the twin of row {row} recomputed a value other than the service's")
+            for _ in range(8):
+                settle()
+                stale = [c for c in (backend.computed_for(nid)
+                                     for nid in list(backend._id_by_input.values()))
+                         if c is not None and c.is_invalidated
+                         and not dg._h_invalid[c._backend_nid]]
+                if not stale:
+                    break
+                twins_updated.append(len(stale))
+                for c in stale:
+                    await c.update()
+            else:
+                fail(f"{len(stale)} invalidated twins keep a clear device bit after 8 rounds")
+        finally:
+            set_default_hub(old_hub)
+        rec["twins_updated"] = twins_updated
+        t = time.perf_counter()
+        hub_rep = validate_hub(hub, sample=RES_SWEEP_SAMPLE)
+        hub_s = time.perf_counter() - t
+        t = time.perf_counter()
+        mirror_rep = validate_mirror(backend, sample=RES_SWEEP_SAMPLE)
+        mirror_s = time.perf_counter() - t
+        if not (hub_rep.ok and mirror_rep.ok):
+            fail(f"the sampled sweeps found violations: {hub_rep.violations[:4]} "
+                 f"{mirror_rep.violations[:4]}")
+        rec["sweeps"] = {"sample": RES_SWEEP_SAMPLE, "hub_s": hub_s,
+                         "hub_nodes": hub_rep.checked_nodes, "mirror_s": mirror_s,
+                         "mirror_nodes": mirror_rep.checked_nodes}
+    finally:
+        wd._oracle_verify = real_verify
+        backend.watchdog = None
+    rec.update(watchdog=wd.snapshot(), events=events.snapshot(), oracle_s=oracle_s,
+               settle_journal=journal_kinds, redraws=redraws[0],
+               phase_s=time.perf_counter() - t_phase,
+               max_memory_allocated=torch.cuda.max_memory_allocated() if cuda else None)
+    emit(rec)
+    return rec
+
+
+async def _http_get(host: str, port: int, path: str) -> tuple:
+    """(status line, body) of one ``GET`` over a fresh connection."""
+    reader, writer = await asyncio.open_connection(host, port)
+    writer.write(f"GET {path} HTTP/1.1\r\nHost: {host}\r\nConnection: close\r\n\r\n".encode())
+    await writer.drain()
+    raw = await reader.read()
+    writer.close()
+    head, _, body = raw.partition(b"\r\n\r\n")
+    return head.split(b"\r\n", 1)[0].decode(), body
+
+
+def phase_read(device, card: str) -> dict:
+    """``read_1k``: the twin of ``perf/read_throughput.py``
+    (``stl_fusion_tpu_torch/read_throughput.py``) with its tables on the
+    card: every mode that touches a table at the script's full sizes (the
+    ``RemoteTable`` modes with and without the mutator, the vectorized
+    modes with host and device ids, the device chain), the host-only modes
+    (scalar, hot, RPC client, no fusion) at ``--quick``'s counts. Each mode
+    passes the twin's exactness checks. The chain's rate is held beside
+    its bound: the ids and rows its gathers read over the card's memory
+    rate. One ``read_1k`` line with the card's name and power limit."""
+    from stl_fusion_tpu_torch.read_throughput import HOST_MODES, SIZES, quick_sizes, run_read
+
+    t = time.perf_counter()
+    sizes = dict(SIZES, **{m: quick_sizes()[m] for m in HOST_MODES})
+    rec = run_read(sizes=sizes, device=device)
+    modes = rec.pop("modes")
+    n_chained, batch = sizes["fusion_device_chained"]
+    chain = modes["fusion_device_chained"]
+    read_bytes = n_chained * batch * (4 + 2 * 4)  # an int32 id and a float32[2] row each
+    bound_s = read_bytes / PEAK_BYTES_PER_S
+    out = {"phase": "read_1k", "card": card, "users": 1000, "sizes": sizes,
+           "k_ops_per_s": {m: rec[m] / 1e3 for m in modes},
+           "db_reads": {m: v["db_reads"] for m, v in modes.items() if v["db_reads"] is not None},
+           "rpc_round_trips": {m: v["rpc_reads"] for m, v in modes.items()
+                               if v["rpc_reads"] is not None},
+           "seconds": {m: v["seconds"] for m, v in modes.items()},
+           "chain": {"ops_per_s": rec["fusion_device_chained"], "bound_ops_per_s":
+                     n_chained * batch / bound_s, "bound_s": bound_s, "bytes": read_bytes,
+                     "readback": chain["readback"]},
+           "speedups": {k: v for k, v in rec.items() if k.startswith("speedup")},
+           "phase_s": time.perf_counter() - t}
+    emit(out)
+    return out
+
+
 def sweep_bytes(graph, words: int, start_level: int, seeded: bool, levels=None) -> int:
     """Bytes a sweep (or the ``levels`` range of one) must move: each
     gathered row's in_src and edge_epoch rows and epoch, each row's
@@ -4113,8 +4600,19 @@ def _main(torch, device, dev, work, opc_mod, wave_mod, rag_mod, tpw_mod, brf_mod
     _, edged = drive("edge", lambda: phase_edge(device, dev["nvidia_smi"], live),
                      ("topo_sweep", "lane_finish", "block_refresh"),
                      absent=("wave_expand.all_forms", "or_popcount", "packed_pull"))
+    # the watchdog's fused bursts (the mirror kernels), its split host loop
+    # (the dense union wave: wave_expand_merge, or_popcount's merge and delta
+    # forms), the block refresh after every burst and in the faulted
+    # super-round; no packed_pull
+    _, resd = drive("resilience", lambda: phase_resilience(device, dev["nvidia_smi"], live),
+                    ("topo_sweep", "lane_finish", "wave_expand_merge", "or_popcount.merge",
+                     "or_popcount.delta", "block_refresh"), absent=("packed_pull",))
+    # the read twin's tables: gathers and scatters of torch, no hand-written
+    # kernel (its drive list is empty)
+    _, readd = drive("read", lambda: phase_read(device, dev["nvidia_smi"]), ())
     main_launches = {name: sum(p[name] for p in (dense, sharded, mirror, packedd, churned, lived,
-                                                 live_srd, meshd, writed, fanoutd, edged))
+                                                 live_srd, meshd, writed, fanoutd, edged, resd,
+                                                 readd))
                      for name in dense}
     kernels = phase_kernels(device, main_launches, level, sg, topo, churn, live, packed,
                             dev["nvidia_smi"])

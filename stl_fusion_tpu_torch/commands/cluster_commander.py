@@ -274,8 +274,8 @@ class ClusterCommander:
         """Apply a command on THIS member: ownership re-check → replay
         dedup → journaled execution under a pinned operation scope →
         completion wave through the nonblocking pipeline."""
-        _routed_path_unported("execute_local")
         from ..cluster.shard_map import ShardMovedError
+        from ..diagnostics.mesh_telemetry import global_mesh_trace
         from ..operations.pipeline import batch_cascade_scope, pinned_operation_scope
 
         smap = self._shard_map()
@@ -351,7 +351,8 @@ class ClusterCommander:
         """Label harvested command waves in the mesh trace store (the
         command → wave-cause join explain()/stitch() read) and record their
         command→visible latency. Returns how many tickets resolved."""
-        _routed_path_unported("reconcile")
+        from ..diagnostics.mesh_telemetry import global_mesh_trace
+
         if not self._pending:
             return 0
         now = time.perf_counter()
@@ -382,17 +383,6 @@ class ClusterCommander:
         newly = pipeline.drain() if pipeline is not None else 0
         self.reconcile()
         return newly
-
-
-def _routed_path_unported(what: str):
-    """The owner-local execution and the ticket reconcile label command
-    waves in the mesh trace store (``diagnostics/mesh_telemetry.py``), and
-    only the cluster layer's router sends work down them: both wait for
-    their slices (ROADMAP A.8 for the trace store, A.9 for the cluster)."""
-    raise NotImplementedError(
-        f"ClusterCommander.{what} needs the mesh trace store and the cluster "
-        "layer, which are not ported yet: ROADMAP A.8 / A.9"
-    )
 
 
 class ClusterCommanderFacade:

@@ -1,13 +1,33 @@
-"""Diagnostics the wave path records into: tracing spans and cause ids,
-the flight recorder, the metrics registry and the per-wave profiler, the
-hot-key sketches the RPC fan-out feeds and the cross-host clock offsets
-its delivery timestamps map through. The monitor, auditor, explain,
-invariants, mesh telemetry and SLOs are not ported yet (ROADMAP A.8).
+"""Diagnostics: registry monitoring and hit-ratio reports, activity-style
+tracing spans and cause ids, explicit graph-invariant sweeps, the causal
+flight recorder and ``explain()`` introspection, the online consistency
+auditor, the hot-key sketches the RPC fan-out feeds, the cross-host clock
+offsets its delivery timestamps map through, the mesh telemetry plane and
+the SLO engine.
 
-``core.computed`` imports this package at module scope, so nothing here
-may import ``core`` at module scope."""
+``core.computed`` imports this package at module scope (the flight-recorder
+hot-path hooks), so nothing here may import ``core``/``rpc`` at module scope
+— ``explain``/``auditor`` keep those imports function-local.
+"""
+from .auditor import ConsistencyAuditor
+from .explain import (
+    explain,
+    explain_client,
+    explain_remote,
+    explain_with_fallback,
+    install_explain,
+)
 from .flight_recorder import RECORDER, FlightRecorder, global_recorder
 from .hotkeys import HOTKEY_DOMAINS, HotKeyBoard, SpaceSavingSketch, global_hotkeys
+from .invariants import InvariantReport, InvariantViolation, validate_hub, validate_mirror
+from .mesh_telemetry import (
+    MeshTelemetryAggregator,
+    MeshTelemetryPublisher,
+    MeshTelemetryService,
+    MeshTraceStore,
+    WaveSegment,
+    global_mesh_trace,
+)
 from .metrics import (
     Counter,
     Gauge,
@@ -16,6 +36,14 @@ from .metrics import (
     WaveProfiler,
     global_metrics,
     next_wave_seq,
+)
+from .monitor import FusionMonitor
+from .slo import (
+    SloEngine,
+    SloSpec,
+    default_slos,
+    global_slo_engine,
+    merge_verdicts,
 )
 from .tracing import (
     CAUSE_PREFIX,
@@ -32,11 +60,51 @@ from .tracing import (
 )
 
 __all__ = [
-    "FlightRecorder", "RECORDER", "global_recorder",
-    "HOTKEY_DOMAINS", "HotKeyBoard", "SpaceSavingSketch", "global_hotkeys",
-    "ActivitySource", "Span", "add_listener", "clear_recent", "current_cause_id",
-    "current_span", "get_activity_source", "recent_spans", "remove_listener",
-    "span_cause_id", "CAUSE_PREFIX",
-    "Counter", "Gauge", "Histogram", "MetricsRegistry", "WaveProfiler", "global_metrics",
+    "FusionMonitor",
+    "ConsistencyAuditor",
+    "FlightRecorder",
+    "RECORDER",
+    "global_recorder",
+    "explain",
+    "explain_client",
+    "explain_remote",
+    "explain_with_fallback",
+    "install_explain",
+    "MeshTelemetryAggregator",
+    "MeshTelemetryPublisher",
+    "MeshTelemetryService",
+    "MeshTraceStore",
+    "WaveSegment",
+    "global_mesh_trace",
+    "InvariantReport",
+    "InvariantViolation",
+    "validate_hub",
+    "validate_mirror",
+    "ActivitySource",
+    "Span",
+    "add_listener",
+    "clear_recent",
+    "current_cause_id",
+    "current_span",
+    "get_activity_source",
+    "recent_spans",
+    "remove_listener",
+    "span_cause_id",
+    "CAUSE_PREFIX",
+    "Counter",
+    "Gauge",
+    "Histogram",
+    "MetricsRegistry",
+    "WaveProfiler",
+    "global_metrics",
     "next_wave_seq",
+    "HOTKEY_DOMAINS",
+    "HotKeyBoard",
+    "SpaceSavingSketch",
+    "global_hotkeys",
+    "SloEngine",
+    "SloSpec",
+    "default_slos",
+    "global_slo_engine",
+    "merge_verdicts",
 ]

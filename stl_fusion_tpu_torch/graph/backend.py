@@ -42,8 +42,12 @@ CUDA graphs. The packed mesh mirror (``packed_mirror``,
 ``invalidate_cascade_batch_lanes_sharded``, ``cascade_rows_lanes_sharded``)
 runs lane bursts on a mesh through the packed pull wave
 (``parallel/packed_wave.py``), patched in place under structural churn.
-The routed mesh mirror and the watchdog are later slices of the port and
-raise ``NotImplementedError``.
+An attached :class:`~stl_fusion_tpu_torch.resilience.WaveWatchdog`
+(``attach_watchdog``) routes every union, lane and sequenced burst: a fused
+burst that raises or misses its deadline re-runs on the split host loop (one
+dense wave a seed group), and the first fused burst after recovery is
+checked against a host BFS oracle. The routed mesh mirror is a later slice
+of the port and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -299,8 +303,8 @@ class TpuGraphBackend:
         #: True while a pipeline harvest applies chain N-1's masks with chain
         #: N in flight (the fan-out's overlap window)
         self.overlap_active = False
-        #: the wave watchdog (ROADMAP A.8): never attached in the port yet,
-        #: so every path takes JAX's no-watchdog branch
+        #: the wave watchdog (``attach_watchdog``): None runs every burst on
+        #: the fused path with no deadline or oracle
         self.watchdog = None
         self._routed_mirror = None  # the routed mesh mirror (ROADMAP A.9)
         self._sharded_mirror: Optional[dict] = None  # see sharded_mirror
@@ -502,13 +506,26 @@ class TpuGraphBackend:
                 arr[: len(old)] = old
                 setattr(self, name, arr)
 
+    def attach_watchdog(self, watchdog):
+        """Route wave dispatches through a resilience.WaveWatchdog: a fused
+        burst that raises or blows its deadline degrades to the split host
+        loop; the first fused wave after recovery is oracle-verified."""
+        self.watchdog = watchdog
+        return watchdog
+
     def _wave_union(self, seed_lists):
+        if self.watchdog is not None:
+            return self.watchdog.run_union(self.graph, seed_lists)
         return self.graph.run_waves_union(seed_lists)
 
     def _wave_lanes(self, seed_lists):
+        if self.watchdog is not None:
+            return self.watchdog.run_lanes(self.graph, seed_lists)
         return self.graph.run_waves_lanes(seed_lists)
 
     def _wave_union_seq(self, seed_lists):
+        if self.watchdog is not None:
+            return self.watchdog.run_seq(self.graph, seed_lists)
         return self.graph.run_waves_union_seq(seed_lists)
 
     # ------------------------------------------------------------------ flush
@@ -1016,9 +1033,9 @@ class TpuGraphBackend:
         cause, seqs = self._begin_wave_span(n_stages)
         self.graph.last_lanes_info = None
         t0 = time.perf_counter()
-        counts, union_mask = self._wave_lanes(seed_lists)
+        counts, union = self._wave_lanes(seed_lists)
         t1 = time.perf_counter()
-        self._apply_newly(union_mask)
+        self._apply_newly(union)
         self.waves_run += len(seed_lists)
         self.device_invalidations += int(counts.sum())
         info = self.graph.last_lanes_info or {}
@@ -1069,9 +1086,9 @@ class TpuGraphBackend:
         cause, seqs = self._begin_wave_span(n_stages)
         self.graph.last_lanes_info = None
         t0 = time.perf_counter()
-        counts, union_mask = self._wave_lanes(seed_lists)
+        counts, union = self._wave_lanes(seed_lists)
         t1 = time.perf_counter()
-        self._apply_newly(union_mask)
+        self._apply_newly(union)
         self.waves_run += len(groups)
         self.device_invalidations += int(counts.sum())
         info = self.graph.last_lanes_info or {}
@@ -1096,7 +1113,7 @@ class TpuGraphBackend:
         ``nonblocking=True``, a ticket whose ``harvest()`` returns them
         later. Until harvest, journal appends are safe but ``flush()`` and
         reads of the host invalid mirror are not. Requires a full-table bind
-        with a device loader and a fusible mirror (RuntimeError or TypeError
+        with a device loader and a fusible mirror (``NotFusible`` or TypeError
         otherwise: callers fall back to the sequential pair)."""
         self.flush()
         stages: List[List[List[int]]] = []
@@ -1167,9 +1184,6 @@ class TpuGraphBackend:
             self.pipeline.drain()  # also drains super_rounds
         elif self.super_rounds is not None and not self.super_rounds._disposed:
             self.super_rounds.drain()
-
-    def attach_watchdog(self, *args, **kwargs):
-        _not_ported("attach_watchdog", "A.8 (diagnostics and resilience)")
 
     def enable_mesh_routing(self, *args, **kwargs):
         _not_ported("enable_mesh_routing", "A.9 (routed mesh waves and the cluster shard map)")

@@ -50,7 +50,7 @@ import torch
 
 from ..device import resolve_device
 from ..diagnostics.metrics import global_metrics
-from .program_cache import ChainProgram, ProgramCache
+from .program_cache import ChainProgram, NotFusible, ProgramCache
 from ..ops.bitops import ids_to_word_masks, pack_mask_host, unpack_words_host
 from ..ops.ell_wave import (
     EllGraph,
@@ -1266,13 +1266,13 @@ class DeviceGraph:
     def _fused_mirror(self, what: str) -> dict:
         """The mirror a chain or super-round runs on: built, patched or
         revalidated, valid, and at most ``FUSED_PASS_MAX`` passes; raises
-        RuntimeError otherwise (callers take their counted eager path)."""
+        :class:`NotFusible` otherwise (callers take their counted eager path)."""
         m = self.build_topo_mirror()
         if not self._mirror_valid():
-            raise RuntimeError(f"topo mirror unavailable — {what} needs the fused path")
+            raise NotFusible(f"topo mirror unavailable — {what} needs the fused path")
         passes = m.get("passes", 1)
         if passes > self.FUSED_PASS_MAX:
-            raise RuntimeError(f"mirror carries {passes} sweep passes > FUSED_PASS_MAX — "
+            raise NotFusible(f"mirror carries {passes} sweep passes > FUSED_PASS_MAX — "
                                f"{what} serves only the fused regime")
         self._count_adaptive(passes)
         return m
@@ -1351,7 +1351,7 @@ class DeviceGraph:
         The words, values and validity update IN PLACE as the stages run.
 
         Requires a fusible mirror (valid, ``passes <= FUSED_PASS_MAX``);
-        raises RuntimeError otherwise. Returns the pending dict for harvest."""
+        raises :class:`NotFusible` otherwise. Returns the pending dict for harvest."""
         m = self._fused_mirror("chain")
         passes = m.get("passes", 1)
         n_tot = m["n_tot"]
@@ -1406,7 +1406,7 @@ class DeviceGraph:
         ran), so dispatch packs nothing. No batching: the whole depth is one
         program, on the card one CUDA graph replay, and the same geometry
         replays the same graph every super-round. Requires a fusible mirror;
-        raises RuntimeError otherwise. Returns a pending dict for
+        raises :class:`NotFusible` otherwise. Returns a pending dict for
         :meth:`harvest_waves_lanes_chain`."""
         m = self._fused_mirror("super-round")
         passes = m.get("passes", 1)

@@ -25,10 +25,11 @@ consecutive waves and overlaps the fan-out with device execution:
   window, and ``overlap_occupancy()`` reports the fraction of host apply
   time that ran concurrently with device execution.
 
-The watchdog (``WaveWatchdog``) and the routed mesh chain are later slices
-of the port (ROADMAP A.8, A.9): ``backend.watchdog`` is always None and
-``backend.mesh_routing_active()`` always False, so their branches below are
-JAX's no-watchdog, single-device ones.
+An attached watchdog (``backend.watchdog``, a ``WaveWatchdog``) takes part
+as the fallbacks below say: its armed fault fails the next dispatch, a chain
+that raises at dispatch or at harvest degrades it, and while it is degraded
+dispatches run its split host loop. The routed mesh chain is a later slice
+of the port: ``backend.mesh_routing_active()`` is always False.
 
 **Consistency contract** (the nonblocking-mode tradeoff, stated plainly):
 between ``submit()`` and the harvest of its chain, the submitted seeds'
@@ -62,6 +63,7 @@ from collections import deque
 from typing import TYPE_CHECKING, Deque, List, Optional, Sequence
 
 from ..diagnostics.metrics import global_metrics
+from .program_cache import NotFusible
 
 if TYPE_CHECKING:
     from ..core.computed import Computed
@@ -230,10 +232,12 @@ class WavePipeline:
                     [[w.seeds] for w in waves], max_words=self.max_words
                 )
                 harvest = backend.graph.harvest_waves_lanes_chain
-        except (RuntimeError, ValueError):
+        except (NotFusible, ValueError):
             # not a fault: the mirror cannot serve the fused path right
             # now (invalid, multi-pass, out-of-contract seeds) — eager
-            # per-wave dispatch, counted so the regression is observable
+            # per-wave dispatch, counted so the regression is observable.
+            # Any other RuntimeError (a failed CUDA launch, a device-side
+            # error) is a chain fault and takes the branch below
             self._run_eager(waves, seqs, cause)
             return
         except Exception as e:  # noqa: BLE001 — chain fault: contain + degrade

@@ -63,6 +63,7 @@ log = logging.getLogger("stl_fusion_tpu_torch")
 __all__ = [
     "ChainOutputs",
     "ChainProgram",
+    "NotFusible",
     "PinnedPool",
     "STATS",
     "enable_program_cache",
@@ -71,6 +72,15 @@ __all__ = [
     "reset_program_warms",
     "time_program_warm",
 ]
+
+
+class NotFusible(RuntimeError):
+    """The fused path cannot serve a chain or super-round right now (no
+    valid mirror, too many sweep passes, a program that cannot be captured):
+    the caller takes its counted eager path. Its own class, because torch
+    reports a failed CUDA launch or a device-side error as a
+    ``RuntimeError`` too, and that one is a fault."""
+
 
 #: env override for the cache root (matches FUSION_MIRROR_CACHE's shape)
 CACHE_ENV = "FUSION_PROGRAM_CACHE"
@@ -211,11 +221,13 @@ class ChainProgram:
             with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 out = self.body(g_invalid, self.seeds, values, valid, fixed)
         except Exception as e:  # noqa: BLE001 — surfaced as the counted eager path
+            # recording runs no kernel (the warm run above did, outside
+            # this try): what fails here is the capture, never the device
             for (mod, name), v in zip(counters, before):
                 setattr(mod, name, v)
             STATS["capture_failures"] += 1
             log.warning("chain program %s: capture failed (%r)", self.key, e)
-            raise RuntimeError(f"chain program capture failed: {e!r}") from e
+            raise NotFusible(f"chain program capture failed: {e!r}") from e
         # the capture launched nothing: its counts move to each replay
         self.launch_deltas = []
         for (mod, name), v in zip(counters, before):

@@ -71,7 +71,7 @@ import torch
 from ..diagnostics.metrics import global_metrics
 from ..ops.pull_wave import pack_lane_matrix
 from . import device_graph
-from .program_cache import PINNED
+from .program_cache import PINNED, NotFusible
 
 if TYPE_CHECKING:
     from .backend import RowBlock, TpuGraphBackend
@@ -443,10 +443,12 @@ class SuperRoundProgram:
                 ticket = self._dispatch_routed(staged, cause, seqs, t0)
             else:
                 ticket = self._dispatch_lanes(staged, cause, seqs, t0)
-        except (RuntimeError, ValueError):
+        except (NotFusible, ValueError):
             # not a fault: the mirror cannot serve the fused path right now
             # (invalid, multi-pass pileup, out-of-contract seeds) — the
-            # counted eager fallback, same policy as the WavePipeline
+            # counted eager fallback, same policy as the WavePipeline. Any
+            # other RuntimeError (a failed CUDA launch, a device-side error)
+            # is a fault and takes the branch below
             return self._eager_ticket(staged, cause, seqs, t0)
         except Exception as e:  # noqa: BLE001 — dispatch fault: contain + count
             return self._fault_ticket(e, staged, cause, seqs)
@@ -472,7 +474,7 @@ class SuperRoundProgram:
                 self.restages += 1
             self._pack_lanes(staged)
             if staged.mats is None:
-                raise RuntimeError("no topo mirror — super-round needs the fused path")
+                raise NotFusible("no topo mirror — super-round needs the fused path")
         if self._live_refresh is not None:
             # thread the in-flight chain's OUTPUT futures as this chain's
             # input columns: back-to-back super-rounds chain device-side
@@ -534,10 +536,12 @@ class SuperRoundProgram:
                     # routed stages are flat per-round unions: one lane
                     seed_lists = [seed_lists]
                 backend.flush()
-                counts, union_mask = backend._wave_lanes(seed_lists)
+                # a degraded watchdog's host loop returns the union's ids,
+                # the fused lanes its mask: the apply takes either
+                counts, union = backend._wave_lanes(seed_lists)
                 backend.last_cause_id = cause
                 backend.last_wave_seq = seqs[i]
-                backend._apply_newly(union_mask)
+                backend._apply_newly(union)
                 per_burst.append(counts.astype(np.int64))
                 total += int(counts.sum())
                 backend.waves_run += len(seed_lists)

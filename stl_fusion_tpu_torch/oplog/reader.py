@@ -119,14 +119,6 @@ class FileChangeNotifier:
         return False
 
 
-def _note_command(rec: OperationRecord) -> None:
-    """Teach the local mesh trace store the label of a record's cause, so
-    stitch()/explain() on this host name the originating command. The trace
-    store (``diagnostics/mesh_telemetry.py``) is not ported yet (ROADMAP
-    A.8), so this is a no-op seam until then; only the cluster commander
-    (A.9) journals records with a cause."""
-
-
 class OperationLogReader(WorkerBase):
     def __init__(
         self,
@@ -271,8 +263,17 @@ class OperationLogReader(WorkerBase):
                         )
                         if rec.cause:
                             # cross-host command attribution: the origin
-                            # member journaled the command span's cause id
-                            _note_command(rec)
+                            # member journaled the command span's cause id;
+                            # teaching the local trace store the label lets
+                            # stitch()/explain() on THIS host name the
+                            # originating command too
+                            from ..diagnostics.mesh_telemetry import global_mesh_trace
+
+                            global_mesh_trace().note_command(
+                                rec.cause,
+                                f"{type(rec.command).__name__} "
+                                f"(op {rec.id[:8]}, agent {rec.agent_id})",
+                            )
                         if RECORDER.enabled:
                             # the flight-journal join point for cross-host
                             # causality: explain() resolves "via oplog entry

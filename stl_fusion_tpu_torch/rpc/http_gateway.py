@@ -179,9 +179,7 @@ class FusionHttpServer:
         #: ``?section=waves|fanout|delivery|recorder|audit`` bounds the
         #: payload to one report section); GET /explain?key= — the causal
         #: chain for a key (flight recorder + wave profiler + span join,
-        #: diagnostics/explain.py: answered 501 until that module is
-        #: ported, as are GET /health without an aggregator and
-        #: GET /trace?cause=). Served ONLY to
+        #: diagnostics/explain.py). Served ONLY to
         #: peers :meth:`_is_trusted_proxy` accepts (default: loopback — the
         #: sidecar scraper shape; with :attr:`proxy_shared_secret` set the
         #: scraper must send it in ``x-auth-request-secret``): span tags
@@ -245,17 +243,6 @@ class FusionHttpServer:
         )
         await writer.drain()
 
-    async def _not_ported(self, writer: asyncio.StreamWriter, what: str) -> None:
-        """The answer of a route whose diagnostics module is not ported
-        yet (ROADMAP A.8): 501 with the module named, never a dropped
-        connection."""
-        await self._write_json(
-            writer,
-            "501 Not Implemented",
-            {"error": {"type": "NotPorted",
-                       "message": f"{what} is not ported yet (ROADMAP A.8)"}},
-        )
-
     async def _handle(self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter) -> None:
         try:
             method, target, headers = await read_request_head(reader)
@@ -318,9 +305,34 @@ class FusionHttpServer:
                 query = urllib.parse.parse_qs(parsed_target.query)
                 cause = query.get("cause", [None])[0]
                 if cause:
-                    # the stitched cross-host wave timeline needs
-                    # diagnostics/mesh_telemetry.py
-                    await self._not_ported(writer, "diagnostics/mesh_telemetry.py")
+                    # stitched cross-host wave timeline — one
+                    # clock-aligned view of one wave, keyed by its cause id
+                    from ..diagnostics.mesh_telemetry import global_mesh_trace
+
+                    expected = (
+                        self.mesh_telemetry.known_hosts()
+                        if self.mesh_telemetry is not None
+                        else None
+                    )
+                    stitched = global_mesh_trace().stitch(
+                        cause, expected_hosts=expected
+                    )
+                    if stitched is None:
+                        await self._write_json(
+                            writer,
+                            "404 Not Found",
+                            {
+                                "error": {
+                                    "type": "UnknownCause",
+                                    "message": (
+                                        f"no trace segments recorded for "
+                                        f"cause {cause!r}"
+                                    ),
+                                }
+                            },
+                        )
+                        return
+                    await self._write_json(writer, "200 OK", {"trace": stitched})
                     return
                 section = query.get("section", [None])[0]
                 if section:
@@ -369,6 +381,8 @@ class FusionHttpServer:
                 await self._write_json(writer, "200 OK", payload)
                 return
             if observability and path == "/explain":
+                from ..diagnostics.explain import explain_with_fallback
+
                 query = urllib.parse.parse_qs(parsed_target.query)
                 key = query.get("key", [None])[0]
                 if not key:
@@ -378,7 +392,16 @@ class FusionHttpServer:
                         {"error": {"type": "BadRequest", "message": "key= required"}},
                     )
                     return
-                await self._not_ported(writer, "diagnostics/explain.py")
+                try:
+                    hub = self.monitor.hub if self.monitor is not None else None
+                    status_line, payload = "200 OK", explain_with_fallback(key, hub=hub)
+                except Exception as e:  # noqa: BLE001 — the incident-diagnosis
+                    # endpoint must answer with the failure, never with a
+                    # dropped connection ($sys-d's _serve_explain contract)
+                    log.exception("explain(%r) failed", key)
+                    status_line = "500 Internal Server Error"
+                    payload = {"error": {"type": type(e).__name__, "message": str(e)}}
+                await self._write_json(writer, status_line, payload)
                 return
             if observability and path == "/health":
                 # machine-readable SLO verdict: mesh-scope when
@@ -386,12 +409,13 @@ class FusionHttpServer:
                 # degraded entries), local-scope otherwise. Always 200 —
                 # the verdict IS the answer; transport success must not be
                 # conflated with fleet health.
-                if self.mesh_telemetry is None:
-                    # the local verdict needs diagnostics/slo.py
-                    await self._not_ported(writer, "diagnostics/slo.py")
-                    return
+                from ..diagnostics.slo import global_slo_engine
+
                 try:
-                    payload = self.mesh_telemetry.mesh_health()
+                    if self.mesh_telemetry is not None:
+                        payload = self.mesh_telemetry.mesh_health()
+                    else:
+                        payload = global_slo_engine().evaluate()
                 except Exception as e:  # noqa: BLE001 — a judging fault is a
                     # degraded verdict, never a dropped connection
                     log.exception("/health evaluation failed")

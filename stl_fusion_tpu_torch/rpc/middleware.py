@@ -41,11 +41,10 @@ def chaos_middleware(policy, events=None) -> Callable:
     """Fault-injection stage (resilience/chaos.py): drop / duplicate /
     delay sampled per message from a seeded policy — the production-shaped
     chaos injection point (append to ``inbound_middlewares`` /
-    ``outbound_middlewares`` like any other stage). ``resilience/chaos.py``
-    is not ported yet: calling this raises."""
-    raise NotImplementedError(
-        "chaos_middleware needs resilience/chaos.py, which is not ported yet (ROADMAP A.8)"
-    )
+    ``outbound_middlewares`` like any other stage)."""
+    from ..resilience.chaos import chaos_middleware as _impl
+
+    return _impl(policy, events)
 
 
 def call_logging_middleware(logger=None, level: int = logging.DEBUG) -> Callable:

@@ -93,6 +93,7 @@ class RpcTestTransportBase:
         self.connect_count: Dict[str, int] = {}
         self._blocked = False
         self._fail_next_after: Optional[int] = None
+        self._chaos = None
         #: True → every frame is dumps()ed on send and loads()ed on receive
         #: (both directions, both ends) — the serialization cost a real
         #: socket transport pays per frame
@@ -122,6 +123,11 @@ class RpcTestTransportBase:
         if self.wire_codec:
             client_end = _CodecPair(client_end)
             server_end = _CodecPair(server_end)
+        if self._chaos is not None:
+            from ..resilience.chaos import wrap_chaos_pair
+
+            client_end = wrap_chaos_pair(client_end, self._chaos)
+            server_end = wrap_chaos_pair(server_end, self._chaos)
         server_hub.server_peer(self.server_peer_ref(peer.ref)).connect(server_end)
         self.connect_count[peer.ref] = self.connect_count.get(peer.ref, 0) + 1
         if self._fail_next_after is not None:
@@ -148,11 +154,8 @@ class RpcTestTransportBase:
         """Apply a ``resilience.ChaosPolicy`` to every connection made from
         now on (both directions): per-message drop/duplicate/delay/reorder
         on the twisted channels. ``None`` disables for future connections
-        (existing links keep their wrappers until they die). The chaos
-        wrappers (``resilience/chaos.py``) are not ported yet (ROADMAP A.8),
-        so a policy raises."""
-        if policy is not None:
-            raise NotImplementedError("set_chaos needs resilience/chaos.py (ROADMAP A.8)")
+        (existing links keep their wrappers until they die)."""
+        self._chaos = policy
 
     async def wait_connected(self, peer_ref: str = "default", timeout: float = 5.0) -> None:
         peer = self.client_hub.client_peer(peer_ref)

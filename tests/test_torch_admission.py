@@ -8,6 +8,7 @@ Each of the 17 cases of ``tests/test_admission.py`` runs on both packages
 (``test_torch_edge.run_case``): the reference's assertions on both, equal
 call results and errors, and, where the traffic does not depend on timing,
 equal hub, edge node and admission controller counters. Tolerance: exact."""
+import torch_threads  # noqa: F401 — one torch thread a test process
 import pytest
 
 from test_torch_edge import run_case

@@ -3,6 +3,7 @@ services run on a JAX-backed hub and on a port-backed hub (``device="cpu"``),
 and the two-tier application (watched nodes eager, the rest pending), the
 batch cascade, recompute after a wave and the journal's ordering must agree
 exactly (node states, counts, and the mirrored invalid masks)."""
+import torch_threads  # noqa: F401 — one torch thread a test process
 import numpy as np
 import pytest
 
@@ -142,8 +143,11 @@ def test_backend_later_slices_raise():
     pipe = hub.enable_nonblocking()
     assert backend.pipeline is pipe and hub.wave_pipeline is pipe
     assert backend.super_rounds is None and not backend.mesh_routing_active()
-    with pytest.raises(NotImplementedError, match="A.8"):
-        backend.attach_watchdog(None)
+    # the watchdog (A.8) is ported: it attaches and routes the bursts
+    from stl_fusion_tpu_torch.resilience import WaveWatchdog
+
+    wd = WaveWatchdog()
+    assert backend.attach_watchdog(wd) is wd and backend.watchdog is wd
     # the packed mesh mirror (A.9's first part) is ported: one shard on the
     # backend's device by default
     entry = backend.packed_mirror()

@@ -7,6 +7,7 @@ then through the port's backend. Bases 0 and 37, row shapes ``()`` and
 ``(3,)``, float32 and int32, ``update_valid`` both ways. Values, validity,
 the invalid bits (those outside the block unchanged) and the host
 bookkeeping must be EQUAL. Tolerance: exact."""
+import torch_threads  # noqa: F401 — one torch thread a test process
 import jax.numpy as jnp
 import numpy as np
 import pytest

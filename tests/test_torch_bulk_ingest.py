@@ -6,8 +6,9 @@ declared-edge rewire, the device loader's warm and refresh, sequenced row
 waves), each run as one scenario through both packages with the same
 assertions, and their counts, stale sets, table values and device invalid
 masks required EQUAL. ``test_monitor_counts_no_phantom_hits_on_misses``
-needs ``FusionMonitor``, which the port does not have yet (ROADMAP A.8).
+runs the reference test on both packages (``test_torch_edge.run_case``).
 Tolerance: exact."""
+import torch_threads  # noqa: F401 — one torch thread a test process
 import asyncio
 import gc
 
@@ -520,3 +521,9 @@ def test_cascade_rows_batch_sharded_matches_dense():
         assert total == 24 and table.stale_count() == 24
         return total, state(backend, table)
     both(run)
+
+
+def test_monitor_counts_no_phantom_hits_on_misses():
+    from test_torch_edge import run_case
+
+    run_case("test_bulk_ingest", "test_monitor_counts_no_phantom_hits_on_misses")

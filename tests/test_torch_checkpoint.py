@@ -16,6 +16,7 @@ lane burst and right after a mesh burst on a backend equals the JAX
 package's snapshot taken at the same point; and the
 ``examples/hello_cart_durable.py`` flow runs through both packages.
 Tolerance: exact."""
+import torch_threads  # noqa: F401 — one torch thread a test process
 import asyncio
 import dataclasses
 import os

@@ -11,9 +11,8 @@ both runs, and every outbound call's first result, every call error and,
 where the traffic does not depend on timing, each hub's counters must be
 EQUAL. The port's memo tables and graph backends run on the CPU
 (``device="cpu"``), so each remote read crosses from the table's tensor to
-the wire's ndarray as it does on the card. Left out:
-``test_invalidation_delivery_under_chaos_dup_reorder_disconnect``
-(``resilience/chaos.py``, ROADMAP A.8). Tolerance: exact."""
+the wire's ndarray as it does on the card. Tolerance: exact."""
+import torch_threads  # noqa: F401 — one torch thread a test process
 import asyncio
 
 import numpy as np
@@ -31,6 +30,7 @@ FUSION_RPC = [
 FUSION_RPC_RECONNECTS = [
     "test_compute_call_survives_reconnect", "test_recreated_client_peer_never_reuses_call_ids",
     "test_fusion_client_chaos_no_lost_invalidation",
+    "test_invalidation_delivery_under_chaos_dup_reorder_disconnect",
 ]
 
 

@@ -7,6 +7,7 @@ each run as one scenario through both packages on a fresh hub with the
 operations pipeline attached, with the reference's assertions, and their
 observations (results, filter traces, retry counts, totals, recompute
 counts) required EQUAL. Tolerance: exact."""
+import torch_threads  # noqa: F401 — one torch thread a test process
 import asyncio
 from dataclasses import dataclass
 from typing import Dict, List, Optional

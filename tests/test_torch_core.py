@@ -6,6 +6,7 @@ invalidation delay, the hot path), each run as one scenario through both
 packages under a fresh default hub, with the reference's assertions, and
 their observations (values read, compute counts, consistency flags)
 required EQUAL. Tolerance: exact."""
+import torch_threads  # noqa: F401 — one torch thread a test process
 import asyncio
 import gc
 

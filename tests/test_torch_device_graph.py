@@ -4,6 +4,7 @@ marks, clears, compaction, every wave entry point — both before the device
 copy exists and as in-place patches after it) runs on both, and the invalid
 masks, counts and ids must be identical. Also ``from_numpy_state``: a JAX
 graph's staging arrays carried into the port. Tolerance: exact."""
+import torch_threads  # noqa: F401 — one torch thread a test process
 import numpy as np
 import pytest
 

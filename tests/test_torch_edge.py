@@ -16,17 +16,15 @@ counts. ``tests/test_admission.py``, ``tests/test_edge_workers.py``, the
 ``ext/`` files and the ``EdgeNode`` cases of ``tests/test_value_plane.py``
 run through the same helper from their own parity files.
 
-Left out, with their slices: ``test_chaos_reshard_sessions_converge_to_oracle``
-(``resilience.ChaosPolicy``, ROADMAP A.8, and ``cluster.ShardMapRouter``,
-A.9), ``test_explain_spans_server_edge_session_and_metrics``
-(``diagnostics.explain``, A.8) and ``test_monitor_reports_edge_section``
-(``FusionMonitor``, A.8).
+Left out, with its slice: ``test_chaos_reshard_sessions_converge_to_oracle``
+(``cluster.ShardMapRouter``, ROADMAP A.9).
 
 The twin at 20,000 nodes runs through both packages
 (``run_edge(api=EdgeApi(<jax modules>))``), on each value plane, and must
 agree on deliveries a round, upstream and server subscriptions, upstream
 RPCs, encodes, block hits and each leg's device waves by kind. No timing
 is compared. Tolerance: exact."""
+import torch_threads  # noqa: F401 — one torch thread a test process
 import asyncio
 import contextlib
 import importlib
@@ -63,11 +61,11 @@ RECORDED = (
 
 
 @contextlib.contextmanager
-def made(package: str):
-    """Records every object of a :data:`RECORDED` class made while the
-    block runs, by class name."""
+def made(package: str, recorded=RECORDED):
+    """Records every object of a ``recorded`` class (default
+    :data:`RECORDED`) made while the block runs, by class name."""
     out, saved = {}, []
-    for module, name, _counters in RECORDED:
+    for module, name, _counters in recorded:
         cls = getattr(importlib.import_module(f"{package}.{module}"), name)
         init = cls.__dict__["__init__"]
         objs = out[name] = []
@@ -90,11 +88,18 @@ def fresh_state(package: str, pipeline: bool = False):
     """What the reference modules' autouse ``fresh_hub`` fixture and the
     conftest's span isolation do for a test, on ``package``: a fresh
     default hub (with the operations pipeline where the module's fixture
-    attaches it), the recent spans and the flight recorder cleared."""
+    attaches it); the recent spans, the flight recorder and the mesh trace
+    store cleared; the span listeners and the recorder's and trace store's
+    gates restored afterwards."""
     core = importlib.import_module(f"{package}.core")
     diag = importlib.import_module(f"{package}.diagnostics")
+    tracing = importlib.import_module(f"{package}.diagnostics.tracing")
+    trace_store = diag.global_mesh_trace()
+    listeners = list(tracing._listeners)
+    gates = diag.RECORDER.enabled, trace_store.enabled
     diag.clear_recent()
     diag.RECORDER.clear()
+    trace_store.clear()
     hub = core.FusionHub()
     if pipeline:
         hub.commander.attach_operations_pipeline()
@@ -103,8 +108,11 @@ def fresh_state(package: str, pipeline: bool = False):
         yield hub
     finally:
         core.set_default_hub(old)
+        tracing._listeners[:] = listeners
+        diag.RECORDER.enabled, trace_store.enabled = gates
         diag.clear_recent()
         diag.RECORDER.clear()
+        trace_store.clear()
 
 
 def _test_fn(module, test: str):
@@ -116,14 +124,16 @@ def _test_fn(module, test: str):
 
 
 def run_case(module: str, test: str, stats: bool = True, patches=(), pipeline: bool = False,
-             **fixtures):
+             recorded=RECORDED, **fixtures):
     """Runs ``tests/<module>.py::<test>`` on the JAX package, then on the
     port, each on a fresh event loop with a fresh default hub (and
     ``fresh_hub`` passed where the test asks for it; ``tmp_path`` is a
     directory of its own a package), and requires equal observations.
     ``stats=False`` leaves the hubs', edge nodes' and admission
     controllers' counters out (the case's traffic depends on timing:
-    coalescing windows, rate limits, reconnects, worker processes)."""
+    coalescing windows, rate limits, reconnects, worker processes).
+    ``recorded`` names the classes whose objects' counters are compared
+    (default :data:`RECORDED`)."""
     got = []
     for package in PACKAGES:
         fn = _test_fn(reference_module(module, package, patches), test)
@@ -135,7 +145,7 @@ def run_case(module: str, test: str, stats: bool = True, patches=(), pipeline: b
                 have["tmp_path"].mkdir()
             kwargs = {name: have[name] for name in inspect.signature(fn).parameters}
             log = stack.enter_context(observed(package))
-            objs = stack.enter_context(made(package))
+            objs = stack.enter_context(made(package, recorded))
             if inspect.iscoroutinefunction(fn):
                 asyncio.run(fn(**kwargs))
             else:
@@ -146,19 +156,33 @@ def run_case(module: str, test: str, stats: bool = True, patches=(), pipeline: b
             "hubs": [(h.name, {k: h.fanout_stats()[k] for k in HUB_COUNTERS})
                      for h in log["hubs"]] if stats else len(log["hubs"]),
             **{name: [counters(o) for o in objs[name]] if stats else len(objs[name])
-               for _module, name, counters in RECORDED},
+               for _module, name, counters in recorded},
         })
     assert got[0] == got[1], got
     return got[1]
 
 
-# ---------------------------------------------------------------- test_edge.py
-#: the port's diagnostics has no ``explain`` yet (A.8); the cases that use
-#: it wait for that slice
-NO_EXPLAIN = ("from stl_fusion_tpu.diagnostics import explain, get_activity_source, "
-              "global_metrics\n",
-              "from stl_fusion_tpu.diagnostics import get_activity_source, global_metrics\n")
+def run_side(module: str, test: str, package: str, patches=(), pipeline: bool = False,
+             **fixtures):
+    """One package's side of ``tests/<module>.py::<test>``, on a fresh loop
+    and default hub: the reference's assertions only. For the cases whose
+    every observation (even what a read returns mid-storm) depends on
+    timing, or that hold wall-clock deadlines: each package's side runs as
+    its own parametrised case."""
+    fn = _test_fn(reference_module(module, package, patches), test)
+    with fresh_state(package, pipeline) as hub:
+        have = dict(fixtures, fresh_hub=hub)
+        if "tmp_path" in fixtures:
+            have["tmp_path"] = fixtures["tmp_path"] / package
+            have["tmp_path"].mkdir()
+        kwargs = {name: have[name] for name in inspect.signature(fn).parameters}
+        if inspect.iscoroutinefunction(fn):
+            asyncio.run(fn(**kwargs))
+        else:
+            fn(**kwargs)
 
+
+# ---------------------------------------------------------------- test_edge.py
 #: test_edge.py's cases whose traffic does not depend on timing
 EDGE_STABLE = [
     "test_single_upstream_subscription_per_key", "test_broken_sink_evicted_without_killing_the_key",
@@ -170,6 +194,7 @@ EDGE_STABLE = [
     "test_resume_replay_uses_cached_bytes_without_stale_t0",
     "test_encoded_bytes_immune_to_payload_mutation", "test_lossy_frames_counted_once_per_encode",
     "test_fan_shards_partition_and_deliver_all_sessions",
+    "test_explain_spans_server_edge_session_and_metrics", "test_monitor_reports_edge_section",
 ]
 #: and those whose coalescing, rate limits, heartbeats or sweeps make their
 #: counts vary with timing
@@ -184,12 +209,12 @@ EDGE_TIMED = [
 
 @pytest.mark.parametrize("test", EDGE_STABLE)
 def test_edge_case(test):
-    run_case("test_edge", test, patches=[NO_EXPLAIN])
+    run_case("test_edge", test)
 
 
 @pytest.mark.parametrize("test", EDGE_TIMED)
 def test_edge_timed_case(test):
-    run_case("test_edge", test, stats=False, patches=[NO_EXPLAIN])
+    run_case("test_edge", test, stats=False)
 
 
 # ---------------------------------------------------------------- the twin

@@ -10,6 +10,7 @@ and reconnects depend on process scheduling, so no counter is compared,
 only the number of hubs and edge nodes each run made. The WebSocket case
 skips where ``websockets`` is not installed, as the reference does.
 Tolerance: exact."""
+import torch_threads  # noqa: F401 — one torch thread a test process
 import pytest
 
 from test_torch_edge import run_case

@@ -3,6 +3,7 @@
 graphs, seeds and states, made with numpy, go through both. Tolerance:
 exact — tables identical (native against native, numpy against numpy), and
 every wave's count, overflow flag, wave id list and invalid state equal."""
+import torch_threads  # noqa: F401 — one torch thread a test process
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -9,6 +9,7 @@ re-exports from but the port lacks is listed in ``UNPORTED_MODULES`` with
 its ROADMAP id, every reference subpackage the port lacks is listed in
 ``UNPORTED_PACKAGES``, and a name the port leaves out although it has the
 module would have to be listed in ``LEFT_OUT`` (it is empty)."""
+import torch_threads  # noqa: F401 — one torch thread a test process
 import ast
 import importlib
 from pathlib import Path
@@ -23,15 +24,6 @@ PORT = Path(stl_fusion_tpu_torch.__file__).resolve().parent
 
 #: reference modules that ported subpackages re-export from, not ported yet
 UNPORTED_MODULES = {
-    "diagnostics.auditor": "A.8",
-    "diagnostics.explain": "A.8",
-    "diagnostics.invariants": "A.8",
-    "diagnostics.mesh_telemetry": "A.8",
-    "diagnostics.monitor": "A.8",
-    "diagnostics.slo": "A.8",
-    "resilience.chaos": "A.8",
-    "resilience.breaker": "A.8",
-    "resilience.watchdog": "A.8",
     "parallel.routed_wave": "A.9",
     "cluster.membership": "A.9",
     "cluster.mesh_controller": "A.9",
@@ -46,7 +38,6 @@ UNPORTED_MODULES = {
 #: graph packer: the port builds ``csrc/graphpack.cpp`` through
 #: ``ops/_build.py::load_host`` instead)
 UNPORTED_PACKAGES = {
-    "ui": "A.7",
     "native": "ported as ops/_build.py::load_host",
 }
 

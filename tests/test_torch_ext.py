@@ -14,12 +14,13 @@ the traffic does not depend on timing, equal hub counters.
   package scans its own copy of the reference module, so neither scan
   imports the other package.
 - ``tests/test_ext_ui.py``: the ``ext`` and gateway cases. Its ``ui``
-  cases wait for ``ui/`` (ROADMAP A.7, third part) and
-  ``test_fusion_monitor_hit_ratio`` for ``FusionMonitor`` (A.8).
+  cases and ``test_fusion_monitor_hit_ratio`` run in
+  ``tests/test_torch_ui.py``.
 - ``tests/test_rpc.py::test_default_session_replacer_middleware`` and
   ``tests/test_testing_utils.py::test_test_web_host_http_gateway``.
 
 Tolerance: exact."""
+import torch_threads  # noqa: F401 — one torch thread a test process
 import pytest
 
 from test_torch_edge import run_case
@@ -70,12 +71,6 @@ def test_plugins_streams_case(test):
     run_case("test_ext_plugins_streams", test, patches=[OWN_PLUGIN_MODULE])
 
 
-#: the port has no ``FusionMonitor`` (A.8) and no ``ui`` (A.7, third part)
-#: yet: their imports go, and the cases that use them wait
-EXT_UI_IMPORTS = [("from stl_fusion_tpu.diagnostics import FusionMonitor\n", ""),
-                  ("from stl_fusion_tpu.ui import LiveComponent, UIActionTracker, UICommander\n",
-                   "")]
-
 EXT_UI = [
     "test_fusion_time_auto_invalidates", "test_moments_ago_formatting",
     "test_kv_store_invalidates_reads_and_listings", "test_kv_store_expiration",
@@ -95,7 +90,7 @@ EXT_UI = [
 
 @pytest.mark.parametrize("test", EXT_UI)
 def test_ext_ui_case(test, tmp_path):
-    run_case("test_ext_ui", test, patches=EXT_UI_IMPORTS, pipeline=True, tmp_path=tmp_path)
+    run_case("test_ext_ui", test, pipeline=True, tmp_path=tmp_path)
 
 
 class CountingIds:
@@ -125,7 +120,20 @@ def test_web_host_http_gateway_case(monkeypatch):
 
 
 def test_chaos_middleware_waits_for_its_slice():
+    """Its slice is ported: the middleware is the chaos stage, and a policy
+    that drops everything drops the message."""
+    import asyncio
+
+    from stl_fusion_tpu_torch.resilience import ChaosPolicy, ResilienceEvents
     from stl_fusion_tpu_torch.rpc.middleware import chaos_middleware
 
-    with pytest.raises(NotImplementedError, match="A.8"):
-        chaos_middleware(object())
+    events, delivered = ResilienceEvents(), []
+
+    async def nxt(message):
+        delivered.append(message)
+
+    class Msg:
+        service, method = "svc", "m"
+
+    asyncio.run(chaos_middleware(ChaosPolicy(seed=3, drop=1.0), events)(None, Msg(), nxt))
+    assert delivered == [] and events.count("chaos_drop") == 1

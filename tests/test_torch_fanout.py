@@ -6,17 +6,16 @@ package's.
 
 - ``tests/test_fanout.py``: each case runs the reference test on both
   packages (``test_torch_rpc.run_both``: the reference's assertions on
-  both, equal call results, errors and hub counters). Its monitor case runs
-  on the port with a stand-in for ``FusionMonitor`` (ROADMAP A.8) that
-  reports ``rpc_hub.fanout_stats()`` under ``"fanout"``, as the monitor
-  does. Left out: the two chaos cases (``resilience/chaos.py`` and
-  ``validate_hub``, A.8).
+  both, equal call results, errors and hub counters; the duplicate and
+  reorder chaos case without the counters). Its dropped-frame chaos case
+  polls until the clients converge, so what it reads depends on timing:
+  each package's side runs as its own case (``test_torch_edge.run_side``).
 - ``tests/test_value_plane.py`` drives the value plane through
-  ``edge.EdgeNode``: each of its cases but the chaos one
-  (``resilience.ChaosPolicy``, ROADMAP A.8) runs on both packages with the
+  ``edge.EdgeNode``: each of its cases runs on both packages with the
   real ``EdgeNode`` (``test_torch_edge.run_case``: the reference's
   assertions, equal call results and errors, and equal hub and edge node
-  counters where the traffic does not depend on timing). Its server half
+  counters where the traffic does not depend on timing; its chaos case,
+  which polls until both edges converge, one side a package). Its server half
   also runs here through the client's ``capture_batch`` with publish
   entries and a recording ``value_plane_client``: the decoded value
   blocks, the fallback fences, the publisher's and the index's counters
@@ -27,6 +26,7 @@ package's.
   leg's fenced (client, key) set must be EQUAL.
 
 Tolerance: exact."""
+import torch_threads  # noqa: F401 — one torch thread a test process
 import asyncio
 import time
 
@@ -48,24 +48,8 @@ import stl_fusion_tpu_torch.rpc as prpc
 import stl_fusion_tpu_torch.utils.serialization as pser
 from stl_fusion_tpu_torch.fanout_path import FanoutApi, port_api, run_fanout
 from stl_fusion_tpu_torch.graph.synthetic import power_law_dag
-from test_torch_edge import run_case
-from test_torch_rpc import run_both
-
-#: the port has no ``FusionMonitor`` yet (A.8): its fan-out report is the
-#: hub's ``fanout_stats()``, which is what the monitor exports
-MONITOR_STAND_IN = (
-    "from stl_fusion_tpu.diagnostics import FusionMonitor, validate_hub\n",
-    "class FusionMonitor:\n"
-    "    def __init__(self, hub):\n"
-    "        self.rpc_hubs = []\n"
-    "    def attach_rpc_hub(self, rpc_hub):\n"
-    "        self.rpc_hubs.append(rpc_hub)\n"
-    "        return self\n"
-    "    def report(self):\n"
-    "        return {'fanout': self.rpc_hubs[0].fanout_stats()}\n"
-    "    def dispose(self):\n"
-    "        pass\n",
-)
+from test_torch_edge import run_case, run_side
+from test_torch_rpc import PACKAGES, run_both
 
 
 @pytest.mark.parametrize("test", [
@@ -76,13 +60,24 @@ MONITOR_STAND_IN = (
     "test_wire_codec_transport_roundtrips",
 ])
 def test_fanout_case(test):
-    run_both("test_fanout", test, patches=[MONITOR_STAND_IN])
+    run_both("test_fanout", test)
 
 
 @pytest.mark.parametrize("test", ["test_redelivered_result_version_mismatch_still_invalidate",
                                   "test_outbox_preserves_per_peer_fifo_across_reconnect"])
 def test_fanout_reconnect_case(test):
-    run_both("test_fanout", test, stats=False, patches=[MONITOR_STAND_IN])
+    run_both("test_fanout", test, stats=False)
+
+
+@pytest.mark.parametrize("coalesce", [True, False])
+def test_batch_delivery_chaos_dup_reorder_converges(coalesce):
+    run_both("test_fanout", "test_batch_delivery_chaos_dup_reorder_converges", stats=False,
+             coalesce=coalesce)
+
+
+@pytest.mark.parametrize("package", PACKAGES)
+def test_dropped_batch_frame_converges_after_reconnect(package):
+    run_side("test_fanout", "test_dropped_batch_frame_converges_after_reconnect", package)
 
 
 # ---------------------------------------------------------------- value plane
@@ -300,11 +295,6 @@ def test_superseded_standing_sub_is_retired_on_rearm():
     both_value_plane(scenario)
 
 
-#: the port has no ``ChaosPolicy`` yet (A.8): its import goes, and the
-#: chaos case waits for that slice
-NO_CHAOS = ("from stl_fusion_tpu.resilience import ChaosPolicy\n", "")
-
-
 @pytest.mark.parametrize("test", [
     "test_partial_batch_failure_falls_back_per_key_and_is_counted",
     "test_value_block_serves_wave_with_zero_upstream_rpcs", "test_stale_block_entry_is_seq_gated",
@@ -315,7 +305,12 @@ NO_CHAOS = ("from stl_fusion_tpu.resilience import ChaosPolicy\n", "")
     "test_reshard_repin_invalidates_exactly_moved_block_entries",
 ])
 def test_value_plane_edge_case(test):
-    run_case("test_value_plane", test, patches=[NO_CHAOS])
+    run_case("test_value_plane", test)
+
+
+@pytest.mark.parametrize("package", PACKAGES)
+def test_batched_reread_equivalent_to_per_key_under_chaos(package):
+    run_side("test_value_plane", "test_batched_reread_equivalent_to_per_key_under_chaos", package)
 
 
 # ---------------------------------------------------------------- the twin

@@ -1210,3 +1210,58 @@ def test_edge_twin_on_card_matches_the_cpu(card):
             == [(x["inv"], x["deliveries"], x["upstream"]) for x in got[1]["rounds"]])
     assert got[0]["server_subscriptions"] == 128 and got[0]["upstream_rpcs_per_burst"] == 0
     assert got[0]["dispatches"]["rounds"]["kinds"]["lanes"]["dispatches"] == 2
+
+
+def _watchdog_scenario(device):
+    """A fused lane burst, an injected fault (the split host loop), the
+    second host burst and the oracle-verified fused burst on a 20,000-node
+    live stack: each burst's counts and union, and the watchdog's counters."""
+    from stl_fusion_tpu_torch.fanout_path import build_stack, port_api
+    from stl_fusion_tpu_torch.resilience import ResilienceEvents, WaveWatchdog
+
+    ctx = build_stack(port_api(device), 20_000)
+    backend, block = ctx["backend"], ctx["block"]
+    dg = backend.graph
+    # a generous deadline: the card's first burst pays the kernels' build
+    wd = backend.attach_watchdog(WaveWatchdog(deadline_s=600.0, recovery_bursts=2,
+                                              events=ResilienceEvents()))
+    rng = np.random.default_rng(1414)
+    out = []
+    for inject in (False, True, False, False):
+        rows = 19_999 - rng.choice(5_000, size=512, replace=False)
+        before = dg._h_invalid.copy()
+        if inject:
+            wd.inject_fault_next()
+        counts = backend.cascade_rows_lanes(block, [rows[i::32] for i in range(32)])
+        union = np.nonzero(dg._h_invalid & ~before)[0]
+        out.append((np.asarray(counts).tolist(), union.tolist(), wd.mode))
+        backend.refresh_block_on_device(block)
+    return out, wd.snapshot()
+
+
+def test_watchdog_fault_host_loop_and_oracle_on_card_match_cpu(card):
+    """The watchdog on a card backend: the fused burst, the injected fault's
+    split host loop (dense waves on the card), the recovery burst and the
+    oracle-verified re-engagement give the CPU run's counts, unions and
+    counters exactly."""
+    got, want = _watchdog_scenario(card), _watchdog_scenario("cpu")
+    assert got == want
+    bursts, snap = got
+    assert [mode for _c, _u, mode in bursts] == ["fused", "host", "fused", "fused"]
+    assert snap["faults"] == 1 and snap["fallbacks"] == 2 and snap["reengages"] == 1
+    assert snap["oracle_checks"] == 1 and snap["oracle_mismatches"] == 0
+
+
+def test_read_twin_device_ids_and_chain_on_card(card):
+    """The read twin's device-id reader and device chain on a card table:
+    every reader's rows, the table equal to the DAL after the mutator, and
+    the chain's readback equal to the same gathers in plain torch on the
+    CPU."""
+    from stl_fusion_tpu_torch.read_throughput import run_read
+
+    sizes = {"fusion_vectorized_device_ids": (8, 65_536), "fusion_device_chained": (8, 65_536)}
+    rec = run_read(modes=("fusion_vectorized_device_ids", "fusion_device_chained"), sizes=sizes,
+                   device=card)
+    assert rec["modes"]["fusion_vectorized_device_ids"]["ops"] == 4 * 8 * 65_536
+    assert rec["modes"]["fusion_device_chained"]["ops"] == 8 * 65_536
+    assert rec["fusion_device_chained"] > 0

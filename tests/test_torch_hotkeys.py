@@ -10,6 +10,7 @@ host's ``payload()`` folded in with ``merge_payloads`` and
 aggregator itself is ROADMAP A.8); the staleness case leaves the stale
 host's payload out of the fold, which is what the aggregator's horizon
 does. Tolerance: exact."""
+import torch_threads  # noqa: F401 — one torch thread a test process
 import json
 
 import numpy as np

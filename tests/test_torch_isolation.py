@@ -3,6 +3,7 @@
 port's own name starts with the string ``stl_fusion_tpu``), and its entry
 points raise on a machine with no CUDA device unless ``device="cpu"`` is
 passed."""
+import torch_threads  # noqa: F401 — one torch thread a test process
 import ast
 from pathlib import Path
 
@@ -160,3 +161,25 @@ def test_edge_worker_entry_imports_no_package_and_no_torch():
     out = subprocess.run([sys.executable, "-c", probe], capture_output=True, text=True,
                          timeout=60, check=True)
     assert out.stdout.strip() == "[]", out
+
+
+def test_scan_covers_the_diagnostics_and_resilience_slice():
+    """The import scan reaches diagnostics and resilience, the UI and the
+    read twin; none names JAX, and the mesh telemetry's host index comes
+    from ``torch.distributed`` (0 with no process group)."""
+    from stl_fusion_tpu_torch.diagnostics import mesh_telemetry
+
+    scanned = {f.relative_to(PKG).as_posix() for f in PKG.rglob("*.py")}
+    new = {f"resilience/{m}.py" for m in ("chaos", "breaker", "watchdog")} | {
+        f"diagnostics/{m}.py" for m in ("invariants", "auditor", "slo", "mesh_telemetry",
+                                        "explain", "monitor")
+    } | {f"ui/{m}.py" for m in ("__init__", "action_tracker", "auth_state", "live_component",
+                                "web")} | {"read_throughput.py"}
+    assert new <= scanned
+    for rel in new:
+        roots = {root for _line, root in _import_roots(PKG / rel)}
+        assert not roots & FORBIDDEN, (rel, roots)
+        text = (PKG / rel).read_text()
+        assert "import jax" not in text and "jax." not in text, rel
+    mesh_telemetry._host_cache = None
+    assert mesh_telemetry.local_host() == "h0"

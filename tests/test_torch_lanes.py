@@ -6,6 +6,7 @@ lane epilogue's plain version against JAX ``topo_mirror_finish_lanes_step``,
 adaptive against fixed sweep passes, ``run_waves_lanes_chain`` and
 ``run_waves_union_seq`` with its overflow rerun. The same numpy-made graphs
 and seeds go through both packages. Tolerance: exact."""
+import torch_threads  # noqa: F401 — one torch thread a test process
 import jax.numpy as jnp
 import numpy as np
 import pytest

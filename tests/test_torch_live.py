@@ -13,6 +13,7 @@ counts, the stale set, the values and the host invalid mirror, and the
 loop's totals and counters must be EQUAL. Both runs end with the restore
 leg (``LIVE_RESTORE``: ``save_graph`` of the live graph, ``load_graph`` of
 the snapshot), whose snapshot bytes must be EQUAL too. Tolerance: exact."""
+import torch_threads  # noqa: F401 — one torch thread a test process
 import os
 
 import jax.numpy as jnp

@@ -6,6 +6,7 @@ the same assertions on each and their observations (values, loader calls,
 stale counts, versions) required EQUAL; device-resident ids are a CPU
 tensor on the port. Plus a JAX table's ``export_state`` loaded into a port
 table, and the port's tables on ``cuda`` by default. Tolerance: exact."""
+import torch_threads  # noqa: F401 — one torch thread a test process
 import asyncio
 
 import jax.numpy as jnp

@@ -4,6 +4,7 @@ with the JAX package's: the same op sequence runs on both, and every burst's
 count and newly ids, the invalid masks (device and host) and the route
 counters must be identical, through structural changes the patch log splices
 into the mirror and through ones that make it stale. Tolerance: exact."""
+import torch_threads  # noqa: F401 — one torch thread a test process
 import numpy as np
 import pytest
 

@@ -8,6 +8,7 @@ the port too. Level-preserving adds and bump + recapture patch in place,
 level violations cost extra passes (past 3 a background re-level starts,
 past 8 the log breaks), in-degree overflow and post-build nodes break the
 log. Tolerance: exact."""
+import torch_threads  # noqa: F401 — one torch thread a test process
 import numpy as np
 import pytest
 

@@ -12,9 +12,16 @@ chain's invalid set is also held against JAX's host-BFS oracle
 overlap case counts fences applied while another chain is in flight
 through the port's RPC fan-out index (``ComputeFanoutIndex.
 drained_overlapped``) over a client subscribed through the in-memory
-transport, and the outbox case merges a batch post under one kick. Left
-out, with their slice: the watchdog's injected fault and degraded mode,
-seeded chaos and ``explain`` (A.8). Tolerance: exact."""
+transport, and the outbox case merges a batch post under one kick.
+
+The watchdog's injected chain fault and degraded mode, the fused bursts
+under seeded chaos and ``explain`` of a wave fused into a chain run the
+reference tests themselves on both packages (``test_torch_edge.run_case``,
+the port's source with the device loader's ``jnp.asarray`` made
+``torch.from_numpy``): the reference's assertions, equal call results and
+errors, and for the watchdog cases equal watchdog counters and bursts.
+Tolerance: exact."""
+import torch_threads  # noqa: F401 — one torch thread a test process
 import asyncio
 
 import jax.numpy as jnp
@@ -448,3 +455,37 @@ async def test_outbox_batch_post_merges_under_one_kick():
             await client_rpc.stop()
             await server_rpc.stop()
     assert out["port"] == out["jax"], out
+
+
+# ---------------------------------------------------------------- the reference's own
+#: the reference's device loader makes a jax array; the port's a tensor
+TORCH_LOADER = [("            import jax.numpy as jnp\n", "            import torch\n"),
+                ("self._base_dev = jnp.asarray(self.base)",
+                 "self._base_dev = torch.from_numpy(self.base)")]
+
+
+@pytest.mark.parametrize("test", ["test_mid_chain_injected_fault_degrades_to_split_host_path",
+                                  "test_degraded_watchdog_routes_pipeline_to_host_loop"])
+def test_watchdog_case(test):
+    from test_torch_edge import run_case
+    from test_torch_resilience import WATCHDOG, unions_recorded
+
+    with unions_recorded():
+        got = run_case("test_nonblocking", test, patches=TORCH_LOADER, recorded=WATCHDOG)
+    assert got["WaveWatchdog"]
+
+
+@pytest.mark.parametrize("k", [2, 8])
+def test_fused_burst_under_seeded_chaos_converges(k):
+    from test_torch_edge import run_case
+
+    run_case("test_nonblocking", "test_fused_burst_under_seeded_chaos_converges", stats=False,
+             patches=TORCH_LOADER, k=k)
+
+
+@pytest.mark.parametrize("test", ["test_explain_names_logical_wave_inside_fused_chain",
+                                  "test_explain_fused_wave_end_to_end_over_sys_d"])
+def test_explain_case(test):
+    from test_torch_edge import run_case
+
+    run_case("test_nonblocking", test, patches=TORCH_LOADER)

@@ -13,10 +13,8 @@ watermarks, quarantined ranges, log records by command, agent and order,
 not uuids) required EQUAL. Subprocess writers run the package under test.
 The lane-burst case also runs at 20,000 nodes of ``power_law_dag`` with a
 real graph backend on each side (a table bound as one row block), and
-requires equal per-group counts, union and stale rows.
-
-Left out: the chaos case's ``validate_hub`` sweep (the invariant checker is
-ROADMAP A.8); its convergence check stays. Tolerance: exact."""
+requires equal per-group counts, union and stale rows. Tolerance: exact."""
+import torch_threads  # noqa: F401 — one torch thread a test process
 import asyncio
 import dataclasses
 import os
@@ -43,7 +41,7 @@ def _ns(pkg):
     name = pkg.__name__
     imp = __import__
     mods = {m: imp(f"{name}.{m}", fromlist=["_"]) for m in (
-        "core", "commands", "oplog", "checkpoint", "graph")}
+        "core", "commands", "oplog", "checkpoint", "graph", "diagnostics")}
     ns = types.SimpleNamespace(name=name, **mods)
     ns.pipeline = imp(f"{name}.operations.pipeline", fromlist=["_"])
     ns.durable = imp(f"{name}.checkpoint.durable", fromlist=["_"])
@@ -517,8 +515,8 @@ async def test_cross_process_write_invalidates_host_computed(tmp_path):
 
 async def test_multihost_chaos_convergence():
     """Commands land on either host while each host's reader is killed and
-    restarted from its watermark; both hosts converge to the DB. The
-    reference's closing ``validate_hub`` sweep waits for ROADMAP A.8."""
+    restarted from its watermark; both hosts converge to the DB, and both
+    hosts' graphs pass the ``validate_hub`` sweep (I1-I5)."""
     async def run(ns):
         out = []
         for seed in (3, 4):
@@ -565,6 +563,8 @@ async def test_multihost_chaos_convergence():
                         while (await svcs[host].get(k)) != want:
                             assert loop.time() < deadline, (seed, host, k, want)
                             await asyncio.sleep(0.05)
+                ns.diagnostics.validate_hub(hub_a).require()
+                ns.diagnostics.validate_hub(hub_b).require()
                 out.append((seed, dict(sorted(ns.DB.items())), log_store.last_index()))
             finally:
                 for r in readers.values():

@@ -3,6 +3,7 @@ with the JAX package's Pallas kernel, which runs in interpret mode off-TPU
 as ``tests/test_pallas_kernels.py`` runs it. Tolerance: exact — the data are
 integer words and bit counts. ``tests/test_torch_gpu.py`` holds the CUDA
 kernel against the plain version on the card."""
+import torch_threads  # noqa: F401 — one torch thread a test process
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -11,6 +11,7 @@ graphs and seeds go to both (and to the per-wave BFS oracle of
 bit-identical; counts, ids, flags and tables equal. Each case named after
 one in ``tests/test_sharded_wave.py`` or ``tests/test_routed_wave.py`` is its
 port counterpart, run on both packages."""
+import torch_threads  # noqa: F401 — one torch thread a test process
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -7,6 +7,7 @@ graphs and seeds go through both and through the per-wave BFS oracle of
 virtual ids differently), the invalid words bit-identical, the counts
 equal. Each case is the port counterpart of one in ``tests/test_pull_wave.py``,
 run on both packages."""
+import torch_threads  # noqa: F401 — one torch thread a test process
 import jax.numpy as jnp
 import numpy as np
 import pytest

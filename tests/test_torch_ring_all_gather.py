@@ -5,6 +5,7 @@ mesh is 8 CPU shards fed the same numpy words, as a list of chunks or as the
 rows of one 2-D tensor. Tolerance: exact (the words are compared as uint32).
 ``tests/test_torch_gpu.py`` holds the CUDA kernel against its plain version
 on the card."""
+import torch_threads  # noqa: F401 — one torch thread a test process
 import functools
 
 import jax

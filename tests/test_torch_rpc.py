@@ -15,14 +15,17 @@ sent, invalidations posted and coalesced, batch frames and keys).
 
 ``test_default_session_replacer_middleware`` and
 ``test_test_web_host_http_gateway`` run in ``tests/test_torch_ext.py``, with
-the port's ``ext/`` and gateway. Left out, with its slice:
-``test_websocket_chaos_calls_and_invalidation_survive`` (``resilience/
-chaos.py``, ROADMAP A.8). The reference's TCP server never returns from ``stop()``
+the port's ``ext/`` and gateway.
+``test_websocket_chaos_calls_and_invalidation_survive`` kills connections
+at random over real sockets and polls until the client converges, so each
+package's side runs as its own case (``test_torch_edge.run_side``). The
+reference's TCP server never returns from ``stop()``
 on Python 3.12.1 and later (``asyncio.Server.wait_closed`` waits for every
 connection, and each connection's handler waits for its socket), so its
 runs here stop the server's peers first (:func:`_jax_tcp_stop`); the port's
 ``RpcTcpServer.stop`` closes its connections itself (ROADMAP C.4).
 Tolerance: exact."""
+import torch_threads  # noqa: F401 — one torch thread a test process
 import asyncio
 import contextlib
 import importlib
@@ -59,6 +62,7 @@ def reference_module(name: str, package: str, patches=()):
         src = re.sub(r"\bstl_fusion_tpu\b", PACKAGES[1], src)
         # the port's entry points run on the card unless given the CPU
         src = re.sub(r"\bTpuGraphBackend\((\w+), ", r'TpuGraphBackend(\1, device="cpu", ', src)
+        src = re.sub(r"\bTpuGraphBackend\((\w+)\)", r'TpuGraphBackend(\1, device="cpu")', src)
         src = re.sub(r"\bMemoTable\(([^()]+)\)", r'MemoTable(\1, device="cpu")', src)
         src = re.sub(r"\bTableBacking\(", 'TableBacking(device="cpu", ', src)
         mod = types.ModuleType(key)
@@ -260,6 +264,13 @@ def test_websocket_case(test):
     run_both("test_websocket", test, stats=False)
 
 
+@pytest.mark.parametrize("package", PACKAGES)
+def test_websocket_chaos_calls_and_invalidation_survive(package):
+    from test_torch_edge import run_side
+
+    run_side("test_websocket", "test_websocket_chaos_calls_and_invalidation_survive", package)
+
+
 # ---------------------------------------------------------------- testing/
 @pytest.mark.parametrize("test", ["test_test_web_host_end_to_end",
                                   "test_test_web_host_isolated_clients",
@@ -286,12 +297,35 @@ async def test_web_host_http_gateway_waits_for_its_slice():
 
 
 def test_set_chaos_waits_for_its_slice():
+    """Its slice is ported: a policy wraps both ends of every connection
+    made from then on, and ``None`` turns it off for the next ones."""
+    from stl_fusion_tpu_torch.resilience import ChaosPolicy
+    from stl_fusion_tpu_torch.resilience import chaos as pchaos
     from stl_fusion_tpu_torch.rpc import RpcHub, RpcTestTransport
 
     transport = RpcTestTransport(RpcHub("client"), RpcHub("server"))
-    transport.set_chaos(None)
-    with pytest.raises(NotImplementedError, match="A.8"):
-        transport.set_chaos(object())
+    wrapped = []
+    real = pchaos.wrap_chaos_pair
+
+    def wrap(pair, policy):
+        wrapped.append(policy)
+        return real(pair, policy)
+
+    async def connect():
+        peer = transport.client_hub.client_peer("default")
+        await transport.wait_connected()
+        await transport.client_hub.stop()
+        await transport.server_hub.stop()
+        return peer
+
+    policy = ChaosPolicy(seed=5)
+    transport.set_chaos(policy)
+    pchaos.wrap_chaos_pair = wrap
+    try:
+        asyncio.run(connect())
+    finally:
+        pchaos.wrap_chaos_pair = real
+    assert wrapped == [policy, policy]
 
 
 # ---------------------------------------------------------------- the wire

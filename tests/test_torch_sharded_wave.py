@@ -4,6 +4,7 @@ CPU mesh against a port mesh of 8 CPU shards. The same numpy graphs, epochs
 and seeds go to both packages and to a union-rule BFS oracle. Tolerance:
 exact — masks bit-identical, counts and ids equal. Each case is the port
 counterpart of one in ``tests/test_sharded_wave.py``, run on both packages."""
+import torch_threads  # noqa: F401 — one torch thread a test process
 import functools
 from collections import deque
 

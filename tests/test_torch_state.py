@@ -4,6 +4,7 @@ with the JAX package's: the 7 cases of ``tests/test_state.py``
 ``when`` and an invalidation storm), each run as one scenario through both
 packages with the same assertions, their observable sequences (values seen,
 update counts, change streams) required EQUAL."""
+import torch_threads  # noqa: F401 — one torch thread a test process
 import asyncio
 
 import pytest

@@ -10,8 +10,10 @@ validity and staleness. A super-round of K rounds must also equal K
 sequential ``cascade_rows_lanes`` + ``refresh_block_on_device`` pairs of
 the same package. On the CPU every program runs its plain composition (the
 card's CUDA graph capture is held by ``tests/test_torch_gpu.py``). Left out:
-the watchdog's injected dispatch fault (ROADMAP A.8) and the routed-mesh
-super-round (ROADMAP A.9). Tolerance: exact."""
+the routed-mesh super-round (ROADMAP A.9). Tolerance: exact."""
+import torch_threads  # noqa: F401 — one torch thread a test process
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -365,15 +367,47 @@ def test_harvest_fault_contained_and_values_stay_truth(monkeypatch):
     both(scenario)
 
 
+def test_mid_superround_fault_falls_back_to_counted_eager_path():
+    """The watchdog's ``inject_fault_next`` at dispatch: the fault is
+    contained (the block re-staled and refreshed, the rounds re-run on the
+    counted eager path under the pre-minted seqs, the watchdog degraded),
+    and the final set and values equal the sequential twin's."""
+    bursts = round_bursts(3, rng=np.random.default_rng(5))
+
+    def scenario(pkg):
+        core = pkg[1]
+        resilience = importlib.import_module(f"{core.__name__.split('.')[0]}.resilience")
+        hub, b, _svc, table, blk = make_stack(pkg)
+        old = core.set_default_hub(hub)
+        try:
+            wd = b.attach_watchdog(resilience.WaveWatchdog(recovery_bursts=1))
+            prog = b.enable_super_rounds(blk, depth=3)
+            wd.inject_fault_next()
+            ticket = prog.dispatch(prog.stage(bursts))
+            assert ticket.done and ticket.fallback
+            assert prog.faults == 1 and prog.eager_rounds == 3
+            assert wd.faults == 1
+            _c, _f, seq_state = sequential(pkg, bursts)
+            np.testing.assert_array_equal(np.asarray(b.graph.invalid_mask()),
+                                          seq_state["invalid"])
+            np.testing.assert_array_equal(values(table), seq_state["values"])
+            assert table.stale_count() == seq_state["stale_count"]
+            return {"counts": ticket.per_burst, **state(b, table), **wd.snapshot()}
+        finally:
+            core.set_default_hub(old)
+
+    both(scenario)
+
+
 def test_capture_failure_takes_the_counted_eager_path(monkeypatch):
     """A program that cannot be captured (``ChainProgram.dispatch`` raising
-    ``RuntimeError``, as a failed CUDA graph capture does) takes JAX's
+    ``NotFusible``, as a failed CUDA graph capture does) takes JAX's
     counted eager path: every round counted in ``eager_rounds``, the
     results those of the sequential pairs."""
     bursts = round_bursts(3, rng=np.random.default_rng(12))
 
     def refuse(self, *a, **kw):
-        raise RuntimeError("chain program capture failed: injected")
+        raise ppc.NotFusible("chain program capture failed: injected")
 
     monkeypatch.setattr(ppc.ChainProgram, "dispatch", refuse)
     hub, b, _svc, table, blk = make_stack(PORT)

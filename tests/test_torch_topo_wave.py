@@ -6,6 +6,7 @@ native, numpy against numpy), and the sweep's bits and per-word counts
 equal JAX ``build_topo_wave32``'s. On the CPU the port's sweep runs its
 plain version; the kernel is held against it on the card
 (``tests/test_torch_gpu.py``)."""
+import torch_threads  # noqa: F401 — one torch thread a test process
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -10,6 +10,7 @@ twins also hold the package exports. The host library case builds the
 port's ``csrc/graphpack.cpp`` through ``ops/_build.py::load_host`` from a
 copy in an empty directory (the JAX twin rebuilds ``stl_fusion_tpu.native``
 the same way) and requires the same ELL tables. Tolerance: exact."""
+import torch_threads  # noqa: F401 — one torch thread a test process
 import asyncio
 import dataclasses
 import random

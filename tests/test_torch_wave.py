@@ -4,6 +4,7 @@ epoch bumps (stale edges) and pre-invalid nodes. Inputs come from a numpy
 seed and go to both packages. Tolerance: exact — masks are bit-identical,
 counts, ids and depths equal. ``tests/test_torch_gpu.py`` holds the CUDA
 ``wave_expand`` against its plain version on the card."""
+import torch_threads  # noqa: F401 — one torch thread a test process
 import jax.numpy as jnp
 import numpy as np
 import pytest
