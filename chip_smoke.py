@@ -62,6 +62,18 @@ user calls. Phases, each printing one JSON line:
    batch, peak memory; then the ``packed=False`` branch (20 waves, each
    equal to its topo lane) and the pull leg (``kernel="pull"``, 32 waves at
    W = 1, its count the sum of lanes 0-31, lanes 0 and 31 the oracle's);
+7c. ``mesh_80m`` — the routed mesh wave (:func:`phase_mesh_80m`) through the
+   twin of ``perf/mesh_path.py`` (``stl_fusion_tpu_torch/mesh_path.py``):
+   its static leg at the defaults (``power_law_dag(80M)``, 4 members, 256
+   shards on 8 logical shards, ``a2a``, 2 waves of 100,000 seeds, wave 0
+   equal to the host BFS), one wave profiled, the ``routed_level`` rows
+   made there (the a2a level at the widest level, the seed step on waves
+   0 and 1's seeds); ``gather``, ``tree`` and ``hier`` (2 hosts of 4) on
+   ``power_law_10m``'s graph, each equal to its dense union with equal
+   levels, with the gather and hier lookups' rows at their widest levels;
+   the async A/B at its defaults (bit-identical masks, strictly fewer
+   merges) with the speculative form's row at its widest speculative
+   level. The graphs are freed before the live stack is built;
 8. ``profile`` — ``torch.profiler`` over one more 10M union wave and one
    sharded ring wave: device time by kernel, device calls per wave, the
    device's idle share, and the level kernel's launches (one per level);
@@ -156,7 +168,16 @@ user calls. Phases, each printing one JSON line:
    sampled invariant sweeps, the monitor's resilience ledger and the
    gateway's ``/explain``, ``/health`` and ``/trace`` at 200; every count
    exact; one ``resilience_10m`` line;
-10h. ``read_1k`` — the twin of ``perf/read_throughput.py``
+10h. ``mesh_live_10m`` — on the same stack after ``resilience_10m``, the
+   twin's live routed leg (:func:`phase_mesh_live`):
+   ``enable_mesh_routing`` of a 2-member, 64-shard map on 8 logical shards
+   (``a2a``), the external RPC client through ``set_mesh_scope``, 3 rounds
+   of 4 groups through ``WavePipeline(fuse_depth=4)``, the chain-difference
+   latency, the kill reshard (shards must move), 3 groups after it, one
+   routed super-round of 3 rounds in one dispatch, a
+   ``save_mesh_shards``/``restore_mesh_shards`` round trip; every wave's
+   count equal to the host BFS over the live edges, the script's gates;
+10i. ``read_1k`` — the twin of ``perf/read_throughput.py``
    (``stl_fusion_tpu_torch/read_throughput.py``, :func:`phase_read`): 1000
    users over sqlite, every mode with its tables on the card (the
    host-only ones at ``--quick``'s counts), each passing its exactness
@@ -187,7 +208,9 @@ user calls. Phases, each printing one JSON line:
    ``wave_expand`` (pure) and
    ``wave_expand_merge`` at the union wave's first and widest levels;
    ``wave_expand_shards`` at the sharded wave's first level; the ring from
-   2-D rows (the main path's form) and from a list. Each with its time (CUDA
+   2-D rows (the main path's form) and from a list; ``routed_level``'s
+   five rows (made and profiled in ``mesh_80m``, where their graphs live).
+   Each with its time (CUDA
    events), its device time (``torch.profiler``), the plain version's time,
    the bound for the same work, and one PyTorch computation of the same
    function where there is one (the ring: the concatenation copied into
@@ -200,13 +223,16 @@ which loads the entry; the loaded tables must equal the built ones, and the
 phase's checks run on the loaded mirror (``mirror_cache``: the cold build's
 and the load's seconds).
 
-The main path is thirteen paths, each driven with every kernel's launch count
+The main path is fifteen paths, each driven with every kernel's launch count
 set to 0 just before it and read just after: phases 3-4 (the dense wave,
 with HelloCart's mesh lane burst) must launch each ``or_popcount`` form
 and ``wave_expand_merge``, phase 5 (the sharded wave) ``or_popcount``'s
 shards form and no other, ``wave_expand_shards`` and ``ring_all_gather``, phases 6-7 (the mirror)
 ``topo_sweep`` and no ``wave_expand``, phase 7b (the mesh leg)
-``packed_pull`` and no ``topo_sweep`` or ``lane_finish``, phase 9 (the
+``packed_pull`` and no ``topo_sweep`` or ``lane_finish``, phase 7c (the
+routed mesh) ``routed_level``'s three forms and each of its lookups
+(``gather``, ``a2a``, ``hier``) and no ``packed_pull``,
+``topo_sweep`` or ``lane_finish``, phase 9 (the
 churn) ``topo_sweep`` and ``lane_finish``, phase 10 (the live loop)
 ``topo_sweep``, ``lane_finish`` and ``block_refresh``, phase 10b (the
 super-round and chain loops, whose launches are CUDA graph replays: each
@@ -218,6 +244,9 @@ dense wave, and phases 10e (the fan-out) and 10f (the edge tier)
 ``wave_expand``, ``or_popcount`` or ``packed_pull``, phase 10g (the
 watchdog) those three and the split host loop's ``wave_expand_merge`` and
 ``or_popcount`` merge and delta, and no ``packed_pull``; phase 10h (the
+live routed pipeline) ``routed_level`` (its a2a level and seed step) and
+``block_refresh`` and no
+``packed_pull``; phase 10i (the
 read twin) runs torch's gathers and requires no hand-written kernel. Any
 failure raises and the script exits non-zero. The last lines are the kernel
 summary (the forms the main path runs), the ``nvidia-smi`` name and power
@@ -235,6 +264,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Optional
 
 #: H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s, and
 #: the non-tensor-core ALU rate used for the integer bit operations here
@@ -1939,25 +1969,28 @@ def _launch_state() -> tuple:
     from stl_fusion_tpu_torch.ops import block_refresh as brf
     from stl_fusion_tpu_torch.ops import or_popcount as opc
     from stl_fusion_tpu_torch.ops import packed_pull as ppp
+    from stl_fusion_tpu_torch.ops import routed_wave as rlw
     from stl_fusion_tpu_torch.ops import topo_wave as tpw
     from stl_fusion_tpu_torch.ops import wave as wave_mod
 
     return (tpw.launches, tpw.lane_finish_launches, brf.launches, ppp.launches,
             ppp.early_exits, wave_mod.launches, dict(wave_mod.form_launches), opc.launches,
-            dict(opc.form_launches))
+            dict(opc.form_launches), rlw.launches, dict(rlw.form_launches))
 
 
 def _restore_launches(saved: tuple) -> None:
     from stl_fusion_tpu_torch.ops import block_refresh as brf
     from stl_fusion_tpu_torch.ops import or_popcount as opc
     from stl_fusion_tpu_torch.ops import packed_pull as ppp
+    from stl_fusion_tpu_torch.ops import routed_wave as rlw
     from stl_fusion_tpu_torch.ops import topo_wave as tpw
     from stl_fusion_tpu_torch.ops import wave as wave_mod
 
     (tpw.launches, tpw.lane_finish_launches, brf.launches, ppp.launches, ppp.early_exits,
-     wave_mod.launches, wave_forms, opc.launches, opc_forms) = saved
+     wave_mod.launches, wave_forms, opc.launches, opc_forms, rlw.launches, rlw_forms) = saved
     wave_mod.form_launches.update(wave_forms)
     opc.form_launches.update(opc_forms)
+    rlw.form_launches.update(rlw_forms)
 
 
 def phase_write(device, card: str, live: dict, level: dict) -> dict:
@@ -3324,6 +3357,504 @@ def phase_read(device, card: str) -> dict:
     return out
 
 
+MESH_SHARDS = 8  # logical shards of the routed mesh phases
+MESH_HIER_DPH = 4  # hier: 2 hosts of 4 shards
+SRC_ROUTED = "stl_fusion_tpu_torch/csrc/routed_level.cu"
+REP_ROUTED = "stl_fusion_tpu/parallel/routed_wave.py:301 (XLA level of _wave; no Pallas kernel)"
+
+
+def routed_capture(g, seed_ids, pick) -> dict:
+    """The input of one launch of ``g``'s wave from ``seed_ids``, which has
+    just run: ``pick(table, merge_slots, spec_slots)`` names a slot of that
+    run's table (``RoutedWave.last``), and the wave runs again from a clear
+    state with a tap that copies what that launch reads: the exchanged
+    words, the frontier, the invalid words and the async accumulator.
+    Leaves ``g`` clear."""
+    import numpy as np
+
+    w = g._wave
+    table, merge, spec = w.last
+    k = pick(table, merge, spec)
+    cap = {}
+
+    def tap(i, x, stride, cross, run, is_spec):
+        if i == k:
+            cap.update(x=x.clone(), stride=stride, spec=is_spec,
+                       cross=None if cross is None else cross.clone(),
+                       front=(run.acc if run.acc is not None and not is_spec else run.f).clone(),
+                       inv=run.invalid.clone(),
+                       acc=None if run.acc is None else run.acc.clone())
+    g.clear_invalid()
+    w.tap = tap
+    try:
+        g.run_wave_collect(list(np.asarray(seed_ids).tolist()))
+    finally:
+        w.tap = None
+    g.clear_invalid()
+    if not cap:
+        raise AssertionError(f"the wave's rerun made no launch at slot {k}")
+    slots = spec if cap["spec"] else merge
+    cap.update(newly=int(table[k, g.n_dev]), level=slots.index(k) + 1)
+    return cap
+
+
+def widest(table, merge, spec, form="level"):
+    """The slot of the widest level (or speculative level) of a run."""
+    slots = spec if form == "spec" else merge
+    return max(slots, key=lambda i: table[i, -2])
+
+
+#: bytes of each live edge's routing a level reads: ``ebslot`` and ``ebit``
+#: (mode 0), ``eprod`` too (a2a, hier), ``elsrc`` alone (spec)
+ROUTED_ROUTING_BYTES = {"routed_level.gather": 8, "routed_level.a2a": 12,
+                        "routed_level.hier": 12, "routed_level.spec": 4}
+
+
+def routed_level_row(device, g, cap, edges, name: str, form: str, shape: str,
+                     main_path: bool) -> dict:
+    """``phase_kernels``' row of one ``routed_level`` launch on ``g`` (the
+    input :func:`routed_capture` took): the kernel against its plain version
+    on the same words and state (exact, and its newly count that of the
+    wave's own launch), CUDA-event time less the restore, the plain
+    version's time and the kernel's device time (``torch.profiler``). The
+    bound: each live edge's routing (``ROUTED_ROUTING_BYTES``) and one read
+    of the source words, 12 B for each edge whose source is in the frontier
+    (``edst``, ``eepoch``, the destination's epoch; spec: local sources
+    only), the invalid words read once and each word the level lit written
+    once in ``invalid`` and ``next`` (and ``acc``). Made where the graph
+    lives; the caller rolls the launches back. ``form`` is the launch
+    counter the row's launches come from."""
+    import numpy as np
+    import torch
+
+    from stl_fusion_tpu_torch.ops import routed_wave as rw
+
+    w, spec = g._wave, cap["spec"]
+    x, stride, cross, inv0, acc0 = cap["x"], cap["stride"], cap["cross"], cap["inv"], cap["acc"]
+    L = w.layout
+    state = []
+    for fn in (rw.routed_level, rw.routed_level_plain):
+        inv, nxt = inv0.clone(), torch.zeros_like(cap["front"])
+        acc = None if acc0 is None or not spec else acc0.clone()
+        out = torch.zeros(rw.slot_width(g.n_dev), dtype=torch.int64, device=device)
+
+        def restore(inv=inv, nxt=nxt, out=out, acc=acc):
+            inv.copy_(inv0)
+            nxt.zero_()
+            out.zero_()
+            if acc is not None:
+                acc.copy_(acc0)
+
+        def call(fn=fn, inv=inv, nxt=nxt, out=out, acc=acc, restore=restore):
+            restore()
+            fn(x, stride, cross, L, w.nepoch, inv, nxt, out, acc=acc, spec=spec)
+        call()
+        state.append((call, restore, inv, nxt, out) + (() if acc is None else (acc,)))
+    err = max(int((a.long() - b.long()).abs().max())
+              for a, b in zip(state[0][2:], state[1][2:]))
+    if err:
+        raise AssertionError(f"{name} differs from its plain version")
+    newly = int(state[0][4][g.n_dev])
+    if newly != cap["newly"]:
+        raise AssertionError(f"{name}: the level lit {newly}, the wave's launch {cap['newly']}")
+    call, restore = state[0][0], state[0][1]
+    with_ms, restore_ms = time_ms(call, device), time_ms(restore, device)
+    plain_ms = time_ms(state[1][0], device, reps=3)
+    prof = {}
+    if device.type == "cuda":
+        key = "routed_level.spec" if spec else "routed_level.level"
+        _, _, _, seen = profile_checked(device, lambda: [call() for _ in range(20)],
+                                        {key: 20}, name, lost_ok=True)
+        ms_d, got = seen[key]
+        prof = {"device_ms": ms_d if got else with_ms - restore_ms, "profiled_launches": got,
+                **({} if got else {"device_ms_by": "cuda_events"})}
+    n_e = int(g._dev_edge_count.sum())
+    src, dst = edges
+    rows = np.flatnonzero(np.unpackbits(cap["front"][: g.n_words].cpu().numpy().view(np.uint8),
+                                        bitorder="little"))
+    front = np.zeros(g.n_nodes, bool)
+    front[g.inv_perm[rows]] = True
+    on = front[src]
+    if spec:  # a remote source never fires in the local level
+        on &= g.perm[src] // g.n_local == g.perm[dst] // g.n_local
+    active = int(on.sum())
+    lit_words = int((state[0][3][: g.n_words] != 0).sum())
+    source_words = 4 * g.n_words if spec else \
+        4 * x.numel() + (4 * cross.numel() if cross is not None else 0)
+    n_bytes = ROUTED_ROUTING_BYTES[form] * n_e + source_words + 12 * active \
+        + 4 * g.n_words + (12 if len(state[0]) > 5 else 8) * lit_words
+    b_ms, b_by = bound_ms(n_bytes, 4 * n_e + 3 * active)
+    return {"name": name, "route": "cuda", "source": SRC_ROUTED, "replaces": REP_ROUTED,
+            "launches": None, "max_abs_err": err, "ms": with_ms - restore_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "form": form, "main_path": main_path, "ms_with_restore": with_ms,
+            "restore_ms": restore_ms, "newly": newly, "level": cap["level"],
+            "active_edges": active, "lit_words": lit_words, "bytes": n_bytes,
+            "shape": shape, **prof}
+
+
+def routed_seed_row(device, g, seed_sets, inv_after_0, name: str, shape: str) -> dict:
+    """``phase_kernels``' row of ``routed_seed`` on ``g``: wave 0's seed
+    words over a clear state (the main path's first step, timed) and wave
+    1's over the state wave 0 left (seeds already invalid conduct but do
+    not count), each against its plain version (exact). The bound: the
+    seed words read once and the invalid word under each nonzero seed word
+    read and written."""
+    import numpy as np
+    import torch
+
+    from stl_fusion_tpu_torch.ops import routed_wave as rw
+
+    w = g._wave
+    cases = []
+    for ids, inv0 in ((seed_sets[0], torch.zeros_like(inv_after_0)),
+                      (seed_sets[1], inv_after_0)):
+        seeds = g._words_of_rows(g.perm[np.asarray(ids, np.int64)])
+        pair = []
+        for fn in (rw.routed_seed, rw.routed_seed_plain):
+            inv = inv0.clone()
+            out = torch.zeros(rw.slot_width(g.n_dev), dtype=torch.int64, device=device)
+
+            def restore(inv=inv, out=out, inv0=inv0):
+                inv.copy_(inv0)
+                out.zero_()
+
+            def call(fn=fn, inv=inv, out=out, seeds=seeds, restore=restore):
+                restore()
+                fn(seeds, inv, out, w.n_dev, w.w_local)
+            call()
+            pair.append((call, restore, inv, out))
+        cases.append((seeds, pair))
+    err = max(int((a.long() - b.long()).abs().max())
+              for _, (k, p) in cases for a, b in zip(k[2:], p[2:]))
+    if err:
+        raise AssertionError(f"{name} differs from its plain version")
+    fresh = [int(k[3][g.n_dev]) for _, (k, _p) in cases]
+    want = []  # the distinct seed rows whose invalid bit was clear
+    for ids, inv0 in ((seed_sets[0], None), (seed_sets[1], inv_after_0)):
+        rows = torch.from_numpy(np.unique(g.perm[np.asarray(ids, np.int64)])).to(device)
+        old = 0 if inv0 is None else int(((inv0[rows >> 5] >> (rows & 31)) & 1).sum())
+        want.append(rows.numel() - old)
+    if fresh != want:
+        raise AssertionError(f"{name}: fresh counts {fresh}, the seed rows' {want}")
+    seeds, ((call, restore, _inv, _out), (plain, *_)) = cases[0]
+    with_ms, restore_ms = time_ms(call, device), time_ms(restore, device)
+    plain_ms = time_ms(plain, device, reps=3)
+    prof = {}
+    if device.type == "cuda":
+        _, _, _, seen = profile_checked(device, lambda: [call() for _ in range(20)],
+                                        {"routed_level.seed": 20}, name, lost_ok=True)
+        ms_d, got = seen["routed_level.seed"]
+        prof = {"device_ms": ms_d if got else with_ms - restore_ms, "profiled_launches": got,
+                **({} if got else {"device_ms_by": "cuda_events"})}
+    n_words = w.n_dev * w.w_local
+    nz = int((seeds[:n_words] != 0).sum())
+    b_ms, b_by = bound_ms(4 * n_words + 8 * nz, 3 * nz)
+    return {"name": name, "route": "cuda", "source": SRC_ROUTED, "replaces": REP_ROUTED,
+            "launches": None, "max_abs_err": err, "ms": with_ms - restore_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "form": "routed_level.seed", "main_path": True, "ms_with_restore": with_ms,
+            "restore_ms": restore_ms, "fresh": fresh, "seed_words": nz, "shape": shape, **prof}
+
+
+def phase_mesh_80m(device, card: str, level: dict, kernel_rows: dict,
+                   static_kw: Optional[dict] = None) -> dict:
+    """``mesh_80m``: the routed mesh wave (``parallel/routed_wave.py``, the
+    ``routed_level`` kernel) through the twin of ``perf/mesh_path.py``
+    (``stl_fusion_tpu_torch/mesh_path.py``). 1. The static leg at the
+    twin's defaults: ``power_law_dag(80M)``, 4 members, 256 shards on 8
+    logical shards, ``a2a``, an untimed wave, then 2 waves of 100,000 seeds,
+    wave 0's mask equal to ``numpy_bfs_mask``; one wave profiled; the
+    ``routed_level`` row at the widest level of wave 0 (into
+    ``kernel_rows``, its launches rolled back). 2. ``gather``, ``tree`` and
+    ``hier`` (2 hosts of 4) on ``power_law_10m``'s graph and epochs, each
+    union wave of its 100,000 seeds equal to that phase's dense union, all
+    three with the same levels. 3. The async A/B at its defaults. Every
+    graph is freed before the phase returns."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from stl_fusion_tpu_torch.cluster import DevicePlacement, ShardMap
+    from stl_fusion_tpu_torch.mesh_path import STATIC, port_api, run_async_ab, run_static
+    from stl_fusion_tpu_torch.parallel import RoutedShardedGraph, graph_mesh
+
+    def fail(what):
+        raise AssertionError(f"mesh_80m: {what}")
+
+    api = port_api(device)
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    violations = []
+    rec = {"phase": "mesh_80m", "card": card}
+    static = run_static(api, n_dev=MESH_SHARDS, violations=violations, keep_graph=True,
+                        **dict(STATIC, **(static_kw or {})))
+    if violations:
+        fail(violations)
+    g, seed_sets, (src, _dst) = static.pop("graph"), static.pop("seed_sets"), static.pop("edges")
+    n, levels = static["nodes"], static["wave_levels"]
+    rec["static"] = {k: v for k, v in static.items() if k != "stats"}
+    rec["static"]["routed"] = static["stats"]
+    rec["level_ms"] = [1e3 * s / lv for s, lv in zip(static["wave_s"], levels)]
+    # one wave profiled (wave 0 again from a clear state)
+    g.clear_invalid()
+    saved = _launch_state()
+    try:
+        if cuda:  # (a CPU rehearsal has no kernels to profile)
+            # each attempt from a clear state; a trace that lost every record
+            # of a form leaves the wave's device time and idle share not
+            # measured (None), never a sum short of that form
+            wall_ms, by_name, calls, seen = profile_checked(
+                device, lambda: g.run_wave_collect(seed_sets[0].tolist()),
+                {"routed_level.level": levels[0], "routed_level.seed": 1}, "mesh_80m wave",
+                lost_ok=True, attempts=5, reset=g.clear_invalid)
+            lost = sorted(f for f, (_, c) in seen.items() if c == 0)
+            device_ms = None if lost else sum(v["ms"] for v in by_name.values())
+            rec["profile"] = {"wall_ms": wall_ms, "device_ms": device_ms,
+                              "idle_share": None if lost else 1 - device_ms / wall_ms,
+                              "lost_forms": lost, "device_calls": calls,
+                              "kernel_launches": {f: c for f, (_, c) in seen.items()},
+                              "by_kernel": dict(sorted(by_name.items(),
+                                                       key=lambda kv: -kv[1]["ms"])[:8])}
+        else:
+            g.run_wave_collect(seed_sets[0].tolist())
+        # the wave's bound from this run's edge counts: every level reads each
+        # live edge's routing, the exchanged words and the invalid words once;
+        # each invalidated row's out-edges fire once (edge and epoch, the
+        # destination's epoch) and each word the wave lit is written once in
+        # invalid and in next
+        mask = g.invalid_mask()
+        inv_after_0 = g.g_invalid.clone()
+        fired = int(mask[src].sum())
+        n_e = int(g._dev_edge_count.sum())
+        x_words = g._wave.exchange(g._words_of_rows(np.empty(0, np.int64)))[0].numel()
+        per_level = 12 * n_e + 4 * x_words + 4 * g.n_words
+        lit_words = int((inv_after_0[: g.n_words] != 0).sum())
+        wave_bytes = levels[0] * per_level + 12 * fired + 8 * lit_words
+        b_ms, b_by = bound_ms(wave_bytes, levels[0] * 4 * n_e + 3 * fired)
+        rec["bound"] = {"wave_bound_ms": b_ms, "bound_by": b_by,
+                        "level_bound_ms": bound_ms(per_level, 4 * n_e)[0],
+                        "live_edges": n_e, "exchanged_words": x_words, "fired_edges": fired,
+                        "lit_words": lit_words, "wave_ms": static["wave_s"][0] * 1e3}
+        g.clear_invalid()
+        cap = routed_capture(g, seed_sets[0], widest)
+        kernel_rows["routed_level"] = routed_level_row(
+            device, g, cap, (src, _dst), "routed_level", "routed_level.a2a",
+            f"a2a, {MESH_SHARDS} shards of {g.n_local} rows, {n_e} live edges, "
+            f"icap {g.bucket_cap}", True)
+        del cap
+        kernel_rows["routed_level (seed)"] = routed_seed_row(
+            device, g, seed_sets, inv_after_0, "routed_level (seed)",
+            f"{MESH_SHARDS} shards x int32[{g.n_local // 32}], wave 0's and wave 1's seeds")
+        del inv_after_0
+    finally:
+        _restore_launches(saved)
+    rec["routed_level"] = {k: v for k, v in kernel_rows["routed_level"].items()
+                           if k not in ("name", "source", "replaces")}
+    rec["routed_seed"] = {k: v for k, v in kernel_rows["routed_level (seed)"].items()
+                          if k not in ("name", "source", "replaces")}
+    del g, src, _dst, mask
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    rec["static_phase_s"] = time.perf_counter() - t_phase
+    emit({**rec, "phase": "mesh_80m_static"})
+
+    # the other three exchanges on power_law_10m's graph and union seeds
+    t0 = time.perf_counter()
+    src10, dst10, n10 = level["src"], level["dst"], level["n"]
+    want_ids, want_count, _depth = level["want_union"]
+    smap = ShardMap.initial([f"m{i}" for i in range(STATIC["members"])],
+                            n_shards=STATIC["shards"])
+    mesh = graph_mesh(devices=[device] * MESH_SHARDS)
+    modes = {}
+    for exchange, dph in (("gather", None), ("tree", None), ("hier", MESH_HIER_DPH)):
+        pl = DevicePlacement.build(smap, MESH_SHARDS, n10, devices_per_host=dph)
+        tb = time.perf_counter()
+        rg = RoutedShardedGraph(src10, dst10, n10, pl, mesh=mesh, exchange=exchange,
+                                edge_dst_epoch=np.zeros(len(dst10), np.int32),
+                                node_epoch=level["node_epoch"])
+        build_s = time.perf_counter() - tb
+        if rg.exchange != exchange:
+            fail(f"{exchange} resolved as {rg.exchange}")
+        runs = []
+        for _ in range(2):  # the first pays one-time lazy loading
+            rg.clear_invalid()
+            lv0 = rg.levels_total
+            sync(device)
+            tw = time.perf_counter()
+            count, _ids, _over = rg.run_wave_collect(level["seeds"].tolist())
+            sync(device)
+            runs.append(((time.perf_counter() - tw) * 1e3, rg.levels_total - lv0, count))
+        mask = rg.invalid_mask()
+        if count != want_count or not np.array_equal(np.nonzero(mask)[0], want_ids):
+            fail(f"{exchange}: the union wave differs from the dense union")
+        modes[exchange] = {"build_s": build_s, "wave_ms": [r[0] for r in runs],
+                           "levels": runs[-1][1], "newly": count,
+                           "cross_words_per_level": rg.cross_words_per_level,
+                           "cross_host_words": rg.cross_host_words, "hosts": rg.n_hosts,
+                           "bucket_cap": rg.bucket_cap, "hbucket_cap": rg.hbucket_cap}
+        if exchange in ("gather", "hier"):  # tree's lookup is gather's
+            saved = _launch_state()
+            try:
+                cap = routed_capture(rg, level["seeds"], widest)
+                name = f"routed_level ({exchange} lookup)"
+                kernel_rows[name] = routed_level_row(
+                    device, rg, cap, (src10, dst10), name, f"routed_level.{exchange}",
+                    f"{exchange}, {MESH_SHARDS} shards of {rg.n_local} rows"
+                    + (f", {rg.n_hosts} hosts of {MESH_HIER_DPH}" if dph else "")
+                    + f", icap {rg.bucket_cap}, hcap {rg.hbucket_cap}", True)
+                del cap
+            finally:
+                _restore_launches(saved)
+            modes[exchange]["routed_level"] = {
+                k: v for k, v in kernel_rows[name].items()
+                if k not in ("name", "source", "replaces")}
+        del rg, mask
+        gc.collect()
+    if len({m["levels"] for m in modes.values()}) != 1:
+        fail(f"the exchanges ran different levels: {modes}")
+    rec["exchanges_10m"] = modes
+    rec["exchanges_s"] = time.perf_counter() - t0
+    emit({"phase": "mesh_80m_exchanges", "card": card, "modes": modes})
+
+    # the async A/B at its defaults
+    t0 = time.perf_counter()
+    ab = run_async_ab(api, n_dev=MESH_SHARDS, violations=violations, keep_graph=True)
+    if violations:
+        fail(violations)
+    if not ab["async_merge_epochs"] < ab["sync_levels"]:
+        fail(f"async merges {ab['async_merge_epochs']} not fewer than sync levels")
+    ga, ab_seeds, ab_edges = ab.pop("graph"), ab.pop("seed_sets"), ab.pop("edges")
+    saved = _launch_state()
+    try:  # the async A/B's widest speculative level, on wave 0 as run
+        ga.run_wave_collect(ab_seeds[0])
+        cap = routed_capture(ga, ab_seeds[0], lambda t, m, sp: widest(t, m, sp, "spec"))
+        kernel_rows["routed_level (spec)"] = routed_level_row(
+            device, ga, cap, ab_edges, "routed_level (spec)", "routed_level.spec",
+            f"spec (async depth {ga.async_depth}), {MESH_SHARDS} shards of {ga.n_local} "
+            f"rows", True)
+    finally:
+        _restore_launches(saved)
+    ab["routed_level_spec"] = {k: v for k, v in kernel_rows["routed_level (spec)"].items()
+                               if k not in ("name", "source", "replaces")}
+    del ga, cap, ab_edges
+    rec["async_ab"] = ab
+    rec["async_ab_s"] = time.perf_counter() - t0
+    if cuda:
+        torch.cuda.empty_cache()
+    import resource
+
+    rec.update(phase_s=time.perf_counter() - t_phase,
+               max_memory_allocated=torch.cuda.max_memory_allocated() if cuda else None,
+               host_max_rss_gib=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20)
+    emit(rec)
+    return rec
+
+
+def phase_mesh_live(device, card: str, live: dict) -> dict:
+    """``mesh_live_10m``: the live routed pipeline on the 10M live stack
+    (after ``resilience_10m``): ``enable_mesh_routing`` of a 2-member,
+    64-shard map on 8 logical shards of the card with ``a2a``, then
+    ``mesh_path.py::run_live`` on that stack: the external RPC client
+    subscribed through ``set_mesh_scope``, 3 rounds of 4 groups through
+    ``WavePipeline(fuse_depth=4)``, the chain-difference latency on shallow
+    tail rows, the kill reshard (``with_members(["m0"])`` →
+    ``apply_mesh_reshard``, shards must move), 3 groups after it; then one
+    routed super-round of 3 rounds in one dispatch and a
+    ``save_mesh_shards`` / ``restore_mesh_shards`` round trip whose
+    ``export_shard_state`` must be equal. Every wave's count equals the
+    vectorized host BFS over the live edges; the script's gates hold."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from stl_fusion_tpu_torch import checkpoint as ckpt
+    from stl_fusion_tpu_torch.mesh_path import port_api, run_live
+
+    def fail(what):
+        raise AssertionError(f"mesh_live_10m: {what}")
+
+    ctx = dict(live["ctx"], read="node")
+    backend, block = ctx["backend"], ctx["block"]
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    backend._drain_nonblocking()
+    backend.flush()
+    backend.refresh_block_on_device(block)
+    backend.flush()
+    extra = {}
+
+    def after_reshard(ctx2, _pipe):
+        oracle, rng = ctx2["mesh_oracle"], np.random.default_rng(29)
+        sr = backend.super_rounds
+        if sr is not None and not sr._disposed:
+            sr.dispose()
+        prog = backend.enable_super_rounds(block, depth=3)
+        n = ctx2["n"]
+        bursts = [[rng.choice(n, size=3, replace=False).tolist() for _ in range(2)]
+                  for _ in range(3)]
+        t0 = time.perf_counter()
+        ticket = prog.dispatch(prog.stage(bursts))
+        prog.drain()
+        sync(device)
+        sr_ms = (time.perf_counter() - t0) * 1e3
+        got = [int(c.sum()) for c in ticket.per_burst]
+        want = [oracle.wave(sorted({block.base + x for grp in groups for x in grp}))
+                for groups in bursts]
+        if got != want:
+            fail(f"routed super-round counts {got} != host BFS {want}")
+        if ticket.routed_pending is None or ticket.routed_pending["dispatches"] != 1:
+            fail("the super-round did not ride one routed chain dispatch")
+        if prog.eager_rounds or prog.faults:
+            fail(f"routed super-round fell back: {prog.stats()}")
+        stats = prog.stats()
+        prog.dispose()
+        oracle.inv = np.asarray(backend.graph.invalid_mask()[: oracle.n], bool).copy()
+        rg = backend._routed_mirror["graph"]
+        before = rg.export_shard_state()
+        with tempfile.TemporaryDirectory(prefix="fusion-mesh-") as td:
+            path = os.path.join(td, "mesh.npz")
+            t1 = time.perf_counter()
+            n_saved = ckpt.save_mesh_shards(rg, path)
+            save_s = time.perf_counter() - t1
+            n_bytes = os.path.getsize(path)
+            rg.clear_invalid()
+            t1 = time.perf_counter()
+            got_r = ckpt.restore_mesh_shards(rg, path)
+            restore_s = time.perf_counter() - t1
+        after = rg.export_shard_state()
+        same = (before.keys() == after.keys() and before["shards"].keys() == after["shards"].keys()
+                and all(np.array_equal(a, b) for s in before["shards"]
+                        for a, b in zip(before["shards"][s], after["shards"][s])))
+        if not same or got_r["restored"] != n_saved:
+            fail("the mesh shard snapshot did not round-trip")
+        extra.update(superround={"counts": got, "ms": sr_ms, "stats": stats},
+                     mesh_snapshot={"shards": n_saved, "bytes": n_bytes, "save_s": save_s,
+                                    "restore_s": restore_s,
+                                    "invalid_rows": int(sum(v[1].sum() for v in
+                                                            before["shards"].values()))})
+
+    violations = []
+    out = asyncio.run(run_live(port_api(device), ctx=ctx, members=2, shards=64, exchange="a2a",
+                               n_dev=MESH_SHARDS, violations=violations,
+                               after_reshard=after_reshard))
+    if violations:
+        fail(violations)
+    rec = {"phase": "mesh_live_10m", "card": card, **out, **extra,
+           "phase_s": time.perf_counter() - t_phase,
+           "max_memory_allocated": torch.cuda.max_memory_allocated() if cuda else None}
+    emit(rec)
+    return rec
+
+
 def sweep_bytes(graph, words: int, start_level: int, seeded: bool, levels=None) -> int:
     """Bytes a sweep (or the ``levels`` range of one) must move: each
     gathered row's in_src and edge_epoch rows and epoch, each row's
@@ -3378,21 +3909,24 @@ def kernel_calls(by_name: dict, symbol: str) -> tuple:
     return sum(v["ms"] for v in hits), sum(v["calls"] for v in hits)
 
 
-def profile_checked(device, fn, want: dict, what: str, lost_ok: bool = False) -> tuple:
+def profile_checked(device, fn, want: dict, what: str, lost_ok: bool = False,
+                    attempts: int = 3, reset=None) -> tuple:
     """``profile_device(fn)`` that must show some launches of each kernel
     form and at most ``want[form]``, the launches the wrappers counted: the
     trace drops some kernel records late in a long process (seen on the
     card: 80-81 of a sweep's 85 launches, 5 of 20 ``or_popcount``
     launches, all 20 of one form twice in a row; quiet host time around
     the profiled calls did not help). A profile that shows
-    no launch of a form the wrappers launched is made again, up to three
-    times, and said so; after that it raises, unless ``lost_ok``, when the
-    form's entry in the result shows 0 launches. More launches than the
-    wrappers counted always raise. Returns (wall ms, by_name, device calls,
-    {form: (device ms per launch over the launches shown, launches
-    shown)})."""
-    attempts = 3
+    no launch of a form the wrappers launched is made again, up to
+    ``attempts`` times in all (``reset()`` before each new attempt, outside
+    the profile, puts back the state ``fn`` starts from), and said so;
+    after that it raises, unless ``lost_ok``, when the form's entry in the
+    result shows 0 launches. More launches than the wrappers counted always
+    raise. Returns (wall ms, by_name, device calls, {form: (device ms per
+    launch over the launches shown, launches shown)})."""
     for attempt in range(1, attempts + 1):
+        if attempt > 1 and reset is not None:
+            reset()
         wall_ms, by_name, calls = profile_device(device, fn)
         seen, over, lost = {}, [], []
         for form, n in want.items():
@@ -3430,6 +3964,10 @@ SYMBOLS = {
     "lane_finish": "lane_finish_kernel",
     "block_refresh": "block_refresh_kernel",
     "packed_pull": "packed_pull_kernel",
+    "routed_level": "routed_",
+    "routed_level.level": "routed_level_kernel<false>",
+    "routed_level.spec": "routed_level_kernel<true>",
+    "routed_level.seed": "routed_seed_kernel",
 }
 
 
@@ -4225,7 +4763,7 @@ def profiled(device, call, form: str, name: str, reps: int = 20, per_call: int =
 
 
 def phase_kernels(device, main_launches: dict, level: dict, sg, topo: dict, churn: dict,
-                  live: dict, packed: dict, card: str) -> dict:
+                  live: dict, packed: dict, card: str, made_rows: Optional[dict] = None) -> dict:
     """Every kernel form against its plain version on the card at the main
     path's shapes, exact, with its time (CUDA events), its device time
     (``torch.profiler``; the CUDA-event time, marked ``device_ms_by``, where
@@ -4456,6 +4994,12 @@ def phase_kernels(device, main_launches: dict, level: dict, sg, topo: dict, chur
     wide_mirror_rows(device, rng, row, check, restored, timed_pair, src_topo, rep_topo)
     block_refresh_rows(device, live, rng, row, check, restored, timed_pair)
     packed_pull_rows(device, packed, live, row, check, restored, timed_pair)
+    # rows made (and profiled) where their inputs lived: routed_level's a2a
+    # level at the 80M mesh wave's widest level and its seed step there, its
+    # gather and hier lookups at the 10M exchanges' widest levels, its
+    # speculative form at the async A/B's widest speculative level
+    for name, r in (made_rows or {}).items():
+        rows[name] = dict(r, launches=main_launches.get(r["form"], 0))
 
     # device time alone (torch.profiler): tells launch- or host-bound calls
     # from slow kernels, since CUDA events over back-to-back calls also time
@@ -4483,6 +5027,7 @@ def main() -> int:
     from stl_fusion_tpu_torch.ops import or_popcount as opc_mod
     from stl_fusion_tpu_torch.ops import packed_pull as ppp_mod
     from stl_fusion_tpu_torch.ops import ring_all_gather as rag_mod
+    from stl_fusion_tpu_torch.ops import routed_wave as rlw_mod
     from stl_fusion_tpu_torch.ops import topo_wave as tpw_mod
     from stl_fusion_tpu_torch.ops import wave as wave_mod
 
@@ -4497,13 +5042,13 @@ def main() -> int:
     os.makedirs(os.environ["FUSION_MIRROR_CACHE"])
     try:
         return _main(torch, device, dev, work, opc_mod, wave_mod, rag_mod, tpw_mod, brf_mod,
-                     ppp_mod)
+                     ppp_mod, rlw_mod)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
 
 def _main(torch, device, dev, work, opc_mod, wave_mod, rag_mod, tpw_mod, brf_mod,
-          ppp_mod) -> int:
+          ppp_mod, rlw_mod) -> int:
 
     def counts():
         return {"or_popcount": opc_mod.launches,
@@ -4515,12 +5060,15 @@ def _main(torch, device, dev, work, opc_mod, wave_mod, rag_mod, tpw_mod, brf_mod
                 "ring_all_gather": rag_mod.launches, "ring_cuda_launches": rag_mod.cuda_launches,
                 "topo_sweep": tpw_mod.launches, "lane_finish": tpw_mod.lane_finish_launches,
                 "block_refresh": brf_mod.launches, "packed_pull": ppp_mod.launches,
-                "packed_pull.early_exits": ppp_mod.early_exits}
+                "packed_pull.early_exits": ppp_mod.early_exits,
+                "routed_level": rlw_mod.launches,
+                **{f"routed_level.{k}": v for k, v in rlw_mod.form_launches.items()}}
 
     def reset():
         opc_mod.launches = wave_mod.launches = rag_mod.launches = rag_mod.cuda_launches = 0
         tpw_mod.launches = tpw_mod.lane_finish_launches = brf_mod.launches = 0
-        ppp_mod.launches = ppp_mod.early_exits = 0
+        ppp_mod.launches = ppp_mod.early_exits = rlw_mod.launches = 0
+        rlw_mod.form_launches.update(dict.fromkeys(rlw_mod.form_launches, 0))
         wave_mod.form_launches.update(dict.fromkeys(wave_mod.form_launches, 0))
         opc_mod.form_launches.update(dict.fromkeys(opc_mod.form_launches, 0))
 
@@ -4559,6 +5107,16 @@ def _main(torch, device, dev, work, opc_mod, wave_mod, rag_mod, tpw_mod, brf_mod
                          ("topo_sweep",), absent=("wave_expand.all_forms", "lane_finish"))
     packed, packedd = drive("packed", lambda: phase_packed_10m(device, dev["nvidia_smi"], topo),
                             ("packed_pull",), absent=("topo_sweep", "lane_finish"))
+    # the routed mesh at 80M (built, waved and freed before the live stack
+    # exists, so the host's peak memory does not stack), its other exchanges
+    # on the 10M graph and the async A/B: routed_level and nothing else
+    routed_rows: dict = {}
+    _, mesh80d = drive("mesh_80m", lambda: phase_mesh_80m(device, dev["nvidia_smi"],
+                                                          pl["level"], routed_rows),
+                       ("routed_level", "routed_level.level", "routed_level.seed",
+                        "routed_level.spec", "routed_level.a2a", "routed_level.gather",
+                        "routed_level.hier"),
+                       absent=("packed_pull", "topo_sweep", "lane_finish"))
     level = pl["level"]
     g, seeds = level["graph"], level["seeds"].tolist()
     calls = level["want_union"][2] + 1  # wave_expand calls per union wave
@@ -4607,15 +5165,21 @@ def _main(torch, device, dev, work, opc_mod, wave_mod, rag_mod, tpw_mod, brf_mod
     _, resd = drive("resilience", lambda: phase_resilience(device, dev["nvidia_smi"], live),
                     ("topo_sweep", "lane_finish", "wave_expand_merge", "or_popcount.merge",
                      "or_popcount.delta", "block_refresh"), absent=("packed_pull",))
+    # the live routed pipeline on the same stack: the pipeline's chains and
+    # the routed super-round ride routed_level; the super-round's refresh is
+    # block_refresh; no packed_pull
+    _, meshlived = drive("mesh_live", lambda: phase_mesh_live(device, dev["nvidia_smi"], live),
+                         ("routed_level", "routed_level.level", "routed_level.seed",
+                          "routed_level.a2a", "block_refresh"), absent=("packed_pull",))
     # the read twin's tables: gathers and scatters of torch, no hand-written
     # kernel (its drive list is empty)
     _, readd = drive("read", lambda: phase_read(device, dev["nvidia_smi"]), ())
-    main_launches = {name: sum(p[name] for p in (dense, sharded, mirror, packedd, churned, lived,
-                                                 live_srd, meshd, writed, fanoutd, edged, resd,
-                                                 readd))
+    main_launches = {name: sum(p[name] for p in (dense, sharded, mirror, packedd, mesh80d,
+                                                 churned, lived, live_srd, meshd, writed, fanoutd,
+                                                 edged, resd, meshlived, readd))
                      for name in dense}
     kernels = phase_kernels(device, main_launches, level, sg, topo, churn, live, packed,
-                            dev["nvidia_smi"])
+                            dev["nvidia_smi"], routed_rows)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in kernels.values()

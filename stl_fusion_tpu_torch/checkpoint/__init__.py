@@ -140,20 +140,62 @@ def load_graph(path: str, device=None) -> DeviceGraph:
 
 # ----------------------------------------------------------- mesh shard state
 def save_mesh_shards(routed_graph, path: str) -> int:
-    """Snapshot a routed mesh mirror's node state keyed per virtual shard.
-    The routed mesh (``parallel/routed_wave.py``) and its placement are not
-    ported yet: ROADMAP A.9."""
-    raise NotImplementedError(
-        "save_mesh_shards needs the routed mesh, which is not ported yet: ROADMAP A.9"
-    )
+    """Snapshot a routed mesh mirror's node state keyed PER VIRTUAL SHARD:
+    the unit that survives a reshard. The restoring process
+    re-pins each shard under whatever :class:`~..cluster.placement.
+    DevicePlacement` it derives from ITS current map — a warm restart
+    after a reshard lands every
+    shard's epochs/invalid marks on the right device regardless of how
+    the slots moved in between. Returns the number of shards written."""
+    snap = routed_graph.export_shard_state()
+    shards = sorted(snap["shards"])
+    offs = np.zeros(len(shards) + 1, dtype=np.int64)
+    eps, invs = [], []
+    for i, s in enumerate(shards):
+        ep, inv = snap["shards"][s]
+        offs[i + 1] = offs[i] + len(ep)
+        eps.append(ep)
+        invs.append(inv)
+
+    def _write(f):
+        np.savez_compressed(
+            f,
+            format=np.int32(_FORMAT_VERSION),
+            map_epoch=np.int64(snap["epoch"]),
+            n_nodes=np.int64(snap["n_nodes"]),
+            n_shards=np.int64(snap["n_shards"]),
+            shard_ids=np.asarray(shards, dtype=np.int64),
+            offsets=offs,
+            node_epoch=np.concatenate(eps) if eps else np.empty(0, np.int32),
+            invalid=np.concatenate(invs) if invs else np.empty(0, bool),
+        )
+
+    atomic_write(path, _write)
+    return len(shards)
 
 
 def restore_mesh_shards(routed_graph, path: str) -> dict:
-    """Re-pin a :func:`save_mesh_shards` snapshot onto a live routed graph.
-    The routed mesh is not ported yet: ROADMAP A.9."""
-    raise NotImplementedError(
-        "restore_mesh_shards needs the routed mesh, which is not ported yet: ROADMAP A.9"
-    )
+    """Re-pin a :func:`save_mesh_shards` snapshot onto a live routed graph
+    under ITS placement. Shards the snapshot lacks (or that moved off this
+    mesh) keep their built state. Returns ``{"restored": n, "map_epoch":
+    e}`` — the caller compares ``map_epoch`` against its current epoch to
+    decide what the rejoin fence must cover."""
+    with np.load(path) as z:
+        shard_ids = z["shard_ids"]
+        offs = z["offsets"]
+        ep = z["node_epoch"]
+        inv = z["invalid"]
+        snap = {
+            "epoch": int(z["map_epoch"]),
+            "n_nodes": int(z["n_nodes"]),
+            "n_shards": int(z["n_shards"]),
+            "shards": {
+                int(s): (ep[offs[i] : offs[i + 1]], inv[offs[i] : offs[i + 1]])
+                for i, s in enumerate(shard_ids)
+            },
+        }
+    restored = routed_graph.import_shard_state(snap)
+    return {"restored": restored, "map_epoch": snap["epoch"]}
 
 
 # ---------------------------------------------------------------- hub snapshot

@@ -46,8 +46,12 @@ An attached :class:`~stl_fusion_tpu_torch.resilience.WaveWatchdog`
 (``attach_watchdog``) routes every union, lane and sequenced burst: a fused
 burst that raises or misses its deadline re-runs on the split host loop (one
 dense wave a seed group), and the first fused burst after recovery is
-checked against a host BFS oracle. The routed mesh mirror is a later slice
-of the port and raises ``NotImplementedError``.
+checked against a host BFS oracle. The routed mesh mirror
+(``enable_mesh_routing``, ``routed_mirror``) pins the graph's CSR shards
+onto a mesh per the cluster shard map (``parallel/routed_wave.py``): its
+union waves and the pipeline's routed chain resolve cross-shard frontiers
+on the device, and ``apply_mesh_reshard`` moves the shards a new map
+reassigns.
 """
 from __future__ import annotations
 
@@ -67,7 +71,7 @@ from ..diagnostics.tracing import CAUSE_PREFIX, current_span, span_cause_id
 from ..ops.block_refresh import block_refresh, loader_rows
 from ..parallel import ShardedDeviceGraph, graph_mesh
 from .device_graph import DeviceGraph, check_structure_cache
-from .program_cache import ProgramCache
+from .program_cache import NotFusible, ProgramCache
 
 if TYPE_CHECKING:
     from ..core.computed import Computed
@@ -79,10 +83,6 @@ __all__ = ["TpuGraphBackend", "GraphBackend", "RowBlock"]
 
 #: process-unique cause-id prefix, shared with tracing
 _CAUSE_PREFIX = CAUSE_PREFIX
-
-
-def _not_ported(what: str, slice_: str):
-    raise NotImplementedError(f"TpuGraphBackend.{what} is not ported yet: ROADMAP {slice_}")
 
 
 class RowBlock:
@@ -306,7 +306,8 @@ class TpuGraphBackend:
         #: the wave watchdog (``attach_watchdog``): None runs every burst on
         #: the fused path with no deadline or oracle
         self.watchdog = None
-        self._routed_mirror = None  # the routed mesh mirror (ROADMAP A.9)
+        self._routed_config: Optional[dict] = None  # see enable_mesh_routing
+        self._routed_mirror: Optional[dict] = None  # see routed_mirror
         self._sharded_mirror: Optional[dict] = None  # see sharded_mirror
         self._packed_mirror: Optional[dict] = None  # see packed_mirror
         self.waves_run = 0
@@ -360,7 +361,7 @@ class TpuGraphBackend:
         return cause, seqs
 
     def _profile_wave(self, kind, seeds, cause, t0, t1, newly, seq, groups=None,
-                      fused_depth=None, seq_span=None, dispatches=None) -> None:
+                      fused_depth=None, seq_span=None, dispatches=None, mesh=None) -> None:
         if self.profiler.enabled:
             self.profiler.record_wave(
                 kind,
@@ -374,6 +375,7 @@ class TpuGraphBackend:
                 fused_depth=fused_depth,
                 seq_span=seq_span,
                 dispatches=dispatches,
+                mesh=mesh,
             )
             if fused_depth is not None and dispatches:
                 per = max(int(round(fused_depth / dispatches)), 1)
@@ -1173,10 +1175,6 @@ class TpuGraphBackend:
         self.super_rounds = SuperRoundProgram(self, block, depth=depth, max_words=max_words)
         return self.super_rounds
 
-    def mesh_routing_active(self) -> bool:
-        """Routed mesh waves are ROADMAP A.9: never active in the port yet."""
-        return False
-
     def _drain_nonblocking(self) -> None:
         """Harvest every in-flight nonblocking plane (the pipeline's chains
         and the super-rounds), so a blocking path acts on a quiesced state."""
@@ -1185,8 +1183,366 @@ class TpuGraphBackend:
         elif self.super_rounds is not None and not self.super_rounds._disposed:
             self.super_rounds.drain()
 
-    def enable_mesh_routing(self, *args, **kwargs):
-        _not_ported("enable_mesh_routing", "A.9 (routed mesh waves and the cluster shard map)")
+    # ------------------------------------------------------------------ routed mesh
+    def enable_mesh_routing(
+        self,
+        shard_map,
+        mesh=None,
+        mesh_members=None,
+        exchange: str = "a2a",
+        devices_per_host: Optional[int] = None,
+        exchange_async: bool = False,
+        async_depth: int = 4,
+    ) -> None:
+        """Pin the live graph's CSR shards onto mesh devices per the
+        CLUSTER shard map: each member's shard-map assignment also places
+        its slice of the mirror on its mesh devices, and cross-shard
+        invalidation frontiers thereafter resolve on the device inside the
+        wave (``_union_routed_nids``, the WavePipeline's routed chain)
+        instead of surfacing to the host and re-entering through per-key
+        RPC. ``mesh_members`` names the members co-located on THIS mesh
+        (default: all map members — the single-host cluster); shards owned
+        by off-mesh members stay on the DCN relay path (rpc/fanout.py
+        counts it). ``devices_per_host`` declares the placement's host
+        axis: with ``exchange="hier"`` each BFS level then resolves as an
+        intra-host exchange plus an inter-host exchange of the reduced
+        per-host frontier words, inside the same chain the super-rounds
+        ride. ``exchange_async=True`` runs the routed waves in
+        asynchronous mode: each shard expands its LOCAL frontier
+        speculatively for up to ``async_depth`` levels between global
+        merge epochs, and the level fence becomes a counted quiescence
+        vote — the invalid mask stays bit-identical to sync by the
+        idempotent-OR argument. The mirror itself builds lazily on the
+        first routed wave."""
+        self._routed_config = {
+            "shard_map": shard_map,
+            "mesh": mesh,
+            "mesh_members": tuple(mesh_members) if mesh_members is not None else None,
+            "exchange": exchange,
+            "devices_per_host": devices_per_host,
+            "exchange_async": exchange_async,
+            "async_depth": async_depth,
+        }
+        self._routed_mirror = None  # rebuild under the new config
+
+    def mesh_routing_active(self) -> bool:
+        return self._routed_config is not None
+
+    def routed_mirror(self) -> dict:
+        """Fingerprint-cached routed mesh mirror of the live graph.
+        Structural churn since the last wave PATCHES the resident shards in
+        place from the graph's ordered delta stream — the whole batch
+        coalesced into ONE patch (the per-patch dispatch overhead, not the
+        per-edge cost, dominated the patch time). Anything the in-place
+        path can't absorb (new nodes, slot/bucket overflow) rebuilds,
+        counted."""
+        from ..cluster.placement import DevicePlacement
+        from ..parallel.routed_wave import RoutedShardedGraph
+
+        cfg = self._routed_config
+        if cfg is None:
+            raise RuntimeError("mesh routing not enabled (enable_mesh_routing)")
+        self.flush()
+        dg = self.graph
+        sv = dg._struct_version
+        cached = self._routed_mirror
+        if cached is not None:
+            if cached["validated_at"] == sv:
+                return cached
+            aux = cached["aux_log"]
+            if not aux["broken"] and self._try_patch_routed(cached, aux):
+                cached["validated_at"] = sv
+                return cached
+            if cached["fp"] is not None and check_structure_cache(
+                cached, sv, lambda: self._routed_fingerprint()
+            ):
+                return cached
+        if cached is not None:
+            dg.drop_aux_delta_log(cached["aux_log"])
+            global_metrics().counter(
+                "fusion_mesh_rebuilds_total",
+                help="routed mesh mirrors rebuilt (patch path could not absorb the churn)",
+            ).inc()
+        mesh = cfg["mesh"] if cfg["mesh"] is not None else graph_mesh(device=dg.device)
+        n_dev = mesh.size
+        smap = cfg["shard_map"]
+        members = cfg["mesh_members"] or smap.members
+        placement = DevicePlacement.build(
+            smap, n_dev, dg.n_nodes, mesh_members=members,
+            devices_per_host=cfg.get("devices_per_host"),
+        )
+        m = dg.n_edges
+        graph = RoutedShardedGraph(
+            dg._h_edge_src[:m].copy(),
+            dg._h_edge_dst[:m].copy(),
+            dg.n_nodes,
+            placement,
+            mesh=mesh,
+            exchange=cfg["exchange"],
+            edge_dst_epoch=dg._h_edge_dst_epoch[:m].copy(),
+            node_epoch=dg._h_node_epoch[: dg.n_nodes],
+            exchange_async=cfg.get("exchange_async", False),
+            async_depth=cfg.get("async_depth", 4),
+        )
+        self._routed_mirror = {
+            "fp": self._routed_fingerprint(),
+            "validated_at": sv,
+            "graph": graph,
+            "aux_log": dg.register_aux_delta_log(),
+            # absent invalid_version ⇒ next wave full-syncs from dense
+        }
+        return self._routed_mirror
+
+    def _routed_fingerprint(self) -> bytes:
+        dg = self.graph
+        m = dg.n_edges
+        h = hashlib.blake2b(digest_size=16)
+        h.update(np.int64(dg.n_nodes).tobytes())
+        h.update(dg._h_edge_src[:m].tobytes())
+        h.update(dg._h_edge_dst[:m].tobytes())
+        h.update(dg._h_edge_dst_epoch[:m].tobytes())
+        h.update(dg._h_node_epoch[: dg.n_nodes].tobytes())
+        return h.digest()
+
+    def _try_patch_routed(self, entry: dict, aux: dict) -> bool:
+        """Coalesce the WHOLE recorded delta stream into one batched patch
+        (bumps are epoch increments and adds carry absolute captured
+        epochs, so the final device state is order-independent — the
+        property that makes same-burst batching safe) and apply it in ONE
+        fused dispatch. False ⇒ rebuild."""
+        graph = entry["graph"]
+        coalesced = self._coalesce_mirror_deltas(aux["deltas"], graph.n_nodes)
+        if coalesced is None:
+            aux["broken"] = True  # nodes born after the build
+            return False
+        bumps, u, v, ep = coalesced
+        if not len(bumps) and not len(u):
+            aux["deltas"] = []
+            return True
+        entry["fp"] = None  # in-place mutation: the build fp never revalidates
+        # the routed mirror keeps ABSOLUTE epochs — no rebase translation
+        if not graph.patch_batch(bumps, u, v, ep.astype(np.int32)):
+            aux["broken"] = True
+            return False
+        aux["deltas"] = []
+        global_metrics().counter(
+            "fusion_mesh_patch_batches_total",
+            help="structural churn batches applied to the routed mesh mirror in one fused dispatch",
+        ).inc()
+        return True
+
+    def apply_mesh_reshard(self, new_map, mesh_members=None) -> int:
+        """MOVE the resident device shards the new epoch reassigns (the
+        rebalancer's device half): state blocks transfer on-device, edge
+        slices + exchange buckets re-pack for the touched devices only.
+        Returns the number of shard moves (0 when no mirror is live yet —
+        the next build derives placement from the new map directly).
+        A move the placement can't absorb drops the mirror (rebuild on
+        next use) — counted, never silent."""
+        from ..cluster.placement import PlacementError
+
+        cfg = self._routed_config
+        if cfg is None:
+            return 0
+        cfg["shard_map"] = new_map
+        if mesh_members is not None:
+            cfg["mesh_members"] = tuple(mesh_members)
+        entry = self._routed_mirror
+        if entry is None:
+            return 0
+        if entry.get("inflight", 0):
+            # a fused chain mid-flight references the CURRENT row layout;
+            # moving shards under it would make its harvest map rows
+            # through the new permutation (dropped invalidations). Drain
+            # first — the reshard then applies to a quiesced mirror.
+            self._drain_nonblocking()
+            entry = self._routed_mirror
+            if entry is None:
+                return 0
+        graph = entry["graph"]
+        members = cfg["mesh_members"] or new_map.members
+        try:
+            placement, moves = graph.placement.moved_to(new_map, mesh_members=members)
+            graph.apply_placement(placement, moves)
+        except PlacementError as e:
+            log.warning("mesh reshard forced a rebuild: %s", e)
+            self.graph.drop_aux_delta_log(entry["aux_log"])
+            self._routed_mirror = None
+            global_metrics().counter("fusion_mesh_rebuilds_total").inc()
+            return 0
+        global_metrics().counter(
+            "fusion_mesh_shard_moves_total",
+            help="device shards moved between mesh devices by reshards",
+        ).inc(len(moves))
+        global_metrics().counter("fusion_mesh_reshards_total").inc()
+        if RECORDER.enabled:
+            RECORDER.note(
+                "mesh_reshard",
+                key=None,
+                cause=f"reshard:{new_map.epoch}",
+                count=len(moves),
+                detail=(
+                    f"epoch {new_map.epoch}: moved {len(moves)} device "
+                    f"shard(s) on-mesh (placement epoch {placement.epoch})"
+                ),
+            )
+        return len(moves)
+
+    def invalidate_cascade_batch_routed(self, computeds: Sequence["Computed"]) -> int:
+        """The live routed burst: one union wave whose cross-shard frontier
+        resolves via mesh collectives (a2a buckets / reduction tree —
+        parallel/routed_wave.py), applied back to the hub exactly like the
+        single-chip path. Missing computeds fall back to immediate host
+        invalidation, counted."""
+        seeds: List[int] = []
+        fallback = 0
+        for c in computeds:
+            nid = self._id_by_input.get(c.input)
+            if nid is None:
+                c.invalidate(immediately=True)
+                fallback += 1
+            else:
+                seeds.append(nid)
+        if not seeds:
+            return fallback
+        return self._union_routed_nids(seeds) + fallback
+
+    def cascade_rows_batch_routed(self, block: RowBlock, rows) -> int:
+        nids = block.base + self._check_rows(block, rows)
+        return self._union_routed_nids(nids.tolist())
+
+    def _routed_sync(self, entry: dict) -> None:
+        dg = self.graph
+        if entry.get("invalid_version") != dg.invalid_version:
+            mask = dg.invalid_mask()
+            dg._h_invalid[: dg.n_nodes] = mask
+            entry["graph"].set_invalid(mask)
+        # out-of-sync until the dense apply completes (same failure
+        # containment as the sharded union bridge)
+        entry.pop("invalid_version", None)
+
+    def _union_routed_nids(self, seeds: List[int]) -> int:
+        entry = self.routed_mirror()
+        if entry.get("inflight", 0):
+            # a fused chain is mid-flight: its device advance must land
+            # before a blocking union syncs from the dense mirror (drain
+            # is the nonblocking-mode barrier — same rule as flush)
+            self._drain_nonblocking()
+            entry = self.routed_mirror()
+        graph = entry["graph"]
+        dg = self.graph
+        self._routed_sync(entry)
+        cause, wave_seq = self._begin_wave()
+        t0 = time.perf_counter()
+        levels0 = graph.levels_total
+        count, newly_ids, overflow = graph.run_wave_collect(seeds)
+        if overflow:
+            newly = graph.invalid_mask() & ~dg._h_invalid[: graph.n_nodes]
+            newly_ids = np.nonzero(newly)[0].astype(np.int32)
+        dg.mark_invalid(newly_ids)
+        entry["invalid_version"] = dg.invalid_version
+        t1 = time.perf_counter()
+        levels = graph.levels_total - levels0
+        self._apply_newly(newly_ids)
+        self.waves_run += 1
+        self.device_invalidations += count
+        global_metrics().counter(
+            "fusion_mesh_routed_waves_total",
+            help="union waves whose cross-shard frontier resolved via mesh collectives",
+        ).inc()
+        global_metrics().counter(
+            "fusion_mesh_exchange_levels_total",
+            help="collective frontier-exchange rounds run on the mesh",
+        ).inc(levels)
+        self._profile_wave(
+            "routed_union", len(seeds), cause, t0, t1, len(newly_ids), wave_seq,
+            mesh={
+                "exchange": graph.exchange,
+                "levels": int(levels),
+                "epoch": graph.placement.epoch,
+                "n_dev": graph.n_dev,
+            },
+        )
+        return count
+
+    def dispatch_waves_routed_chain(
+        self, stage_seed_lists: Sequence[Sequence[int]], staged: Optional[dict] = None
+    ) -> dict:
+        """K logical waves in ONE routed chain dispatch with NO readback
+        — the frontier exchange composed into the nonblocking loop-carried
+        chain (graph/nonblocking.py rides this when mesh routing is on).
+        Raises :class:`~.program_cache.NotFusible` for contract violations
+        the pipeline treats as the eager fallback (empty seed sets).
+
+        With a chain already IN FLIGHT the device state is AHEAD of the
+        dense mirror by exactly that chain's work — the dense full-sync
+        must be SKIPPED (it would overwrite the in-flight advance with
+        pre-chain state and double-count its cascade at harvest); the
+        loop-carried device state is the consistent one. Host-led invalid
+        changes between overlapped dispatches are covered by the
+        pipeline's journal guard + ``drain()`` barrier, same contract as
+        the single-chip lanes chain."""
+        if any(len(s) == 0 for s in stage_seed_lists):
+            raise NotFusible("routed chain stages need non-empty seed sets")
+        entry = self.routed_mirror()
+        graph = entry["graph"]
+        if entry.get("inflight", 0) == 0:
+            self._routed_sync(entry)
+        levels0 = graph.levels_total
+        # a pre-packed seed buffer (SuperRoundProgram's back buffer) skips
+        # the host pack; dispatch_union_chain rejects a stale token
+        pending = graph.dispatch_union_chain(stage_seed_lists, staged=staged)
+        entry["inflight"] = entry.get("inflight", 0) + 1  # after dispatch succeeds
+        pending["entry"] = entry
+        pending["levels0"] = levels0
+        return pending
+
+    def harvest_waves_routed_chain(self, pending: dict):
+        """Block on a routed chain ticket: (per-stage counts, per-stage
+        newly id arrays). An overflowed stage's ids are recovered from one
+        mask diff against the pre-chain dense mirror and attributed to the
+        FIRST overflowed stage — containment preserves the SET (the counts
+        stay device-exact); invalidation is idempotent."""
+        entry = pending["entry"]
+        graph = entry["graph"]
+        dg = self.graph
+        try:
+            counts, stage_ids, info = graph.harvest_union_chain(pending)
+        except Exception:
+            # a failed harvest leaves the device state unknowable: clear
+            # the in-flight accounting and stay out-of-sync so the next
+            # wave full-syncs from the dense truth (the pipeline's fault
+            # containment re-runs the waves on the split host loop)
+            entry["inflight"] = 0
+            entry.pop("invalid_version", None)
+            raise
+        if info["overflowed"]:
+            newly = graph.invalid_mask() & ~dg._h_invalid[: graph.n_nodes]
+            all_ids = np.nonzero(newly)[0].astype(np.int64)
+            attributed = [i for i in stage_ids if i is not None]
+            seen = (
+                np.concatenate(attributed) if attributed else np.empty(0, np.int64)
+            )
+            leftover = np.setdiff1d(all_ids, seen)
+            first = True
+            for i, ids in enumerate(stage_ids):
+                if ids is None:
+                    stage_ids[i] = leftover if first else np.empty(0, np.int64)
+                    first = False
+        union = (
+            np.concatenate(stage_ids) if stage_ids else np.empty(0, np.int64)
+        )
+        dg.mark_invalid(union)
+        entry["inflight"] = max(entry.get("inflight", 1) - 1, 0)
+        if entry["inflight"] == 0:
+            # only a FULLY-drained mirror reads in-sync: with another chain
+            # still executing, the device state is ahead of the dense
+            # mirror until that chain harvests too
+            entry["invalid_version"] = dg.invalid_version
+        levels = graph.levels_total - pending["levels0"]
+        global_metrics().counter("fusion_mesh_routed_waves_total").inc(len(stage_ids))
+        global_metrics().counter("fusion_mesh_exchange_levels_total").inc(levels)
+        return counts, stage_ids
 
     # ------------------------------------------------------------------ mesh bridge
     def to_sharded(self, mesh=None, exchange: str = "packed"):

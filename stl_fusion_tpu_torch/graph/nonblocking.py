@@ -28,8 +28,10 @@ consecutive waves and overlaps the fan-out with device execution:
 An attached watchdog (``backend.watchdog``, a ``WaveWatchdog``) takes part
 as the fallbacks below say: its armed fault fails the next dispatch, a chain
 that raises at dispatch or at harvest degrades it, and while it is degraded
-dispatches run its split host loop. The routed mesh chain is a later slice
-of the port: ``backend.mesh_routing_active()`` is always False.
+dispatches run its split host loop. With mesh routing on
+(``backend.enable_mesh_routing``) the chain is the routed union chain
+(``RoutedShardedGraph.dispatch_union_chain``): cross-shard frontiers resolve
+on the device inside the dispatch, never through the per-key host relay.
 
 **Consistency contract** (the nonblocking-mode tradeoff, stated plainly):
 between ``submit()`` and the harvest of its chain, the submitted seeds'
@@ -222,7 +224,9 @@ class WavePipeline:
             return
         try:
             if backend.mesh_routing_active():
-                # the routed chain (ROADMAP A.9) raises naming its slice
+                # the frontier exchange composed into the loop-carried
+                # chain: cross-shard frontiers resolve on the mesh INSIDE
+                # the fused dispatch, never via the per-key host relay
                 pending = backend.dispatch_waves_routed_chain(
                     [w.seeds for w in waves]
                 )

@@ -24,8 +24,16 @@ Fusion": the win is deleting the host round trips that separate kernels):
   two-tier apply while N runs. ``occupancy()`` reports the fraction of the
   flight window covered by useful host work; ``host_stall_ms()`` the time
   the host spent blocked on the device with nothing staged.
-- **Mesh mode** (the routed union chain, ROADMAP A.9) is not ported: the
-  routed branch raises naming its slice.
+- **Mesh mode.** When ``backend.enable_mesh_routing`` is active, the
+  super-round rides the routed union chain
+  (``RoutedShardedGraph.dispatch_union_chain``: each round one union wave
+  whose cross-shard frontiers resolve on the mesh, the chain's levels
+  enqueued with no readback), so mesh mode keeps ZERO host-relay hops
+  between rounds; the columnar refresh folds per SUPER-ROUND at harvest
+  (the memo columns live on the dense device state, not the routed
+  shards). Seed staging still overlaps the flight window; a reshard
+  between stage and dispatch re-packs the buffer (counted, never silently
+  stale). This route is not a captured CUDA graph.
 
 **Identity.** Every round keeps its own wave seq (``_begin_wave_span``),
 recorder events during a round's host apply stamp that round's seq, and the
@@ -196,13 +204,46 @@ class SuperRoundTicket:
         return per_burst
 
     def _harvest_routed(self) -> List[np.ndarray]:
-        _routed_not_ported()
+        prog = self.program
+        backend = prog.backend
+        t0 = time.perf_counter()
+        counts, stage_ids = backend.harvest_waves_routed_chain(self.routed_pending)
+        stall = time.perf_counter() - t0
+        prog.stall_s += stall
+        prog._record_stall(stall, self.cause)
+        K = len(stage_ids)
+        backend.last_cause_id = self.cause
+        total = 0
+        t_apply0 = time.perf_counter()
+        per_burst: List[np.ndarray] = []
+        try:
+            for i in range(K):
+                backend.last_wave_seq = self.seqs[i]
+                backend._apply_newly(np.asarray(stage_ids[i], dtype=np.int64))
+                per_burst.append(np.asarray([int(counts[i])], dtype=np.int64))
+                total += int(counts[i])
+        finally:
+            backend.last_wave_seq = self.seqs[0]
+        backend.waves_run += K
+        backend.device_invalidations += total
+        # the routed scan exchanges frontiers on-mesh; the memo columns
+        # live on the dense device state, so the columnar refresh folds
+        # per SUPER-ROUND here (still one dispatch, zero per-round hops)
+        prog.cleared_total += backend.refresh_block_on_device(prog.block)
+        # the fence drain is the one phase the host DOES time end-to-end:
+        # apply + refresh between harvest and profile
+        from ..diagnostics.mesh_telemetry import global_mesh_trace
 
-
-def _routed_not_ported():
-    raise NotImplementedError(
-        "super-rounds over routed mesh waves are not ported yet: ROADMAP A.9 (routed mesh "
-        "waves and the cluster shard map)")
+        global_mesh_trace().record(
+            self.cause, "fence_drain", t_apply0, time.perf_counter()
+        )
+        backend._profile_wave(
+            "superround", sum(len(s) for s in self.staged.stages),
+            self.cause, self.dispatched_at, t_apply0, total, self.seqs[0],
+            groups=K, fused_depth=K,
+            seq_span=(self.seqs[0], self.seqs[-1]), dispatches=1,
+        )
+        return per_burst
 
 
 class SuperRoundProgram:
@@ -403,7 +444,25 @@ class SuperRoundProgram:
         staged.mirror_rebuilds = dg.mirror_rebuilds
 
     def _pack_routed(self, staged: StagedSeeds) -> None:
-        _routed_not_ported()
+        """Routed back buffer: the union-chain seed tensor packed through
+        the live routed graph's row permutation (host-only). With no
+        routed mirror built yet, packing defers to dispatch (the first
+        dispatch builds the mirror)."""
+        entry = self.backend._routed_mirror
+        if entry is None:
+            return
+        from ..cluster.placement import PlacementError
+
+        try:
+            staged.routed_staged = entry["graph"].stage_union_chain(
+                staged.stages
+            )
+        except PlacementError:
+            # mid-rebuild / off-mesh permutation state: nothing was
+            # packed — defer to dispatch, which stages against the
+            # then-current mirror (and contains a repeat as a counted
+            # fault). Genuine staging bugs raise to the caller.
+            staged.routed_staged = None
 
     # ------------------------------------------------------------------ dispatch
     def dispatch(self, staged: StagedSeeds) -> SuperRoundTicket:
@@ -496,7 +555,38 @@ class SuperRoundProgram:
         return SuperRoundTicket(self, inner, staged, cause, seqs, t0)
 
     def _dispatch_routed(self, staged, cause, seqs, t0) -> SuperRoundTicket:
-        _routed_not_ported()
+        from ..diagnostics.mesh_telemetry import reset_dispatch_cause, set_dispatch_cause
+
+        backend = self.backend
+        # the routed invalid_version protocol ties harvest (which also
+        # folds the per-super-round refresh) to the dense mirror — harvest
+        # the previous super-round before dispatching the next; staging
+        # still overlapped its flight window
+        self._harvest_all()
+        # thread THIS wave's cause into the routed dispatch so the graph's
+        # host-boundary trace segments share it — one identity
+        # per wave, never a second cause minted a layer down
+        token = set_dispatch_cause(cause)
+        try:
+            try:
+                pending = backend.dispatch_waves_routed_chain(
+                    staged.stages, staged=staged.routed_staged
+                )
+            except Exception as e:
+                from ..cluster.placement import PlacementError
+
+                if not isinstance(e, PlacementError):
+                    raise
+                # staged against a placement that resharded: re-pack + retry
+                # once, counted — never dispatch stale row permutations
+                self.restages += 1
+                staged.routed_staged = None
+                pending = backend.dispatch_waves_routed_chain(staged.stages)
+        finally:
+            reset_dispatch_cause(token)
+        return SuperRoundTicket(
+            self, None, staged, cause, seqs, t0, routed_pending=pending
+        )
 
     # ------------------------------------------------------------------ fallbacks
     def _eager_ticket(self, staged, cause, seqs, t0) -> SuperRoundTicket:
@@ -617,6 +707,22 @@ class SuperRoundProgram:
         by route: ``replays``, ``captures`` (first captures and
         re-captures), ``recaptures`` and ``uncaptured`` (the adaptive sweep,
         run stream-ordered)."""
+        # async frontier passthrough: when the routed mirror
+        # rides the asynchronous exchange, surface its merge/quiescence
+        # telemetry beside the super-round counters — the resident program
+        # itself is UNCHANGED (double-buffered staging, one scan per
+        # super-round); only the wave kernel inside the chain differs
+        routed_async: dict = {}
+        entry = self.backend._routed_mirror
+        if entry is not None:
+            g = entry.get("graph")
+            if g is not None and getattr(g, "exchange_async", False):
+                routed_async = {
+                    "exchange_async": True,
+                    "async_depth": g.async_depth,
+                    "quiescence_checks": g.quiescence_checks,
+                    "spec_levels_total": g.spec_levels_total,
+                }
         r = self.routes
         return {
             "depth": self.depth,
@@ -642,6 +748,7 @@ class SuperRoundProgram:
             "captures": r.get("capture", 0) + r.get("recapture", 0),
             "recaptures": r.get("recapture", 0),
             "uncaptured": r.get("stream", 0),
+            **routed_async,
         }
 
     def dispose(self) -> None:

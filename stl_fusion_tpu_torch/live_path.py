@@ -44,9 +44,7 @@ Defaults are ``perf/live_path.py``'s (``LIVE_DEG=3``, ``LIVE_ROUNDS=6``,
 ``LIVE_LANE_GROUPS=512``, ``LIVE_LANE_SEEDS=8``, ``LIVE_EDGE_CHURN=2000``,
 ``LIVE_SCALAR_CHURN=4``, ``LIVE_LAT_WAVES=32``) at ``bench.py``'s
 ``FUSION_BENCH_LIVE_NODES=10_000_000``. Cut, and listed in the record:
-the scalar-build micro-metric (``LIVE_SCALAR_NODES``), the asynchronous
-frontier exchange (``LIVE_ASYNC=1``, a routed-mesh feature: ROADMAP A.9),
-the chain-difference lone-wave estimator and the relay round-trip
+the scalar-build micro-metric (``LIVE_SCALAR_NODES``), the chain-difference lone-wave estimator and the relay round-trip
 subtraction (there is no relay: each lone wave is timed on the host clock,
 synchronised), and the multi-pass program warms (nothing compiles here).
 
@@ -80,7 +78,6 @@ LOOP_SEED = 123
 SEQ_WAVES = 8
 CUT = (
     "LIVE_SCALAR_NODES scalar-build micro-metric",
-    "LIVE_ASYNC asynchronous frontier exchange (routed mesh, ROADMAP A.9)",
     "chain-difference lone-wave estimator and relay-RTT subtraction (no relay)",
     "multi-pass program warms (nothing compiles)",
     "program_cache_stats of the restore leg (a JAX compile cache; nothing compiles here)",
@@ -165,7 +162,7 @@ def run_live(n_nodes: int = N_NODES, deg: float = 3, rounds: int = 6, lane_group
              lat_waves: int = 32, edges=None, device=None, api: Optional[LiveApi] = None,
              observer=None, nonblocking: bool = True, super_rounds: bool = True,
              fuse_depth: int = 3, loops: Optional[Sequence[tuple]] = None,
-             snapshot_path: Optional[str] = None) -> dict:
+             snapshot_path: Optional[str] = None, live_async: bool = False) -> dict:
     """Build the live stack once, run its loop and return the record.
     ``nonblocking`` and ``super_rounds`` (``LIVE_NONBLOCKING``,
     ``LIVE_SUPER_ROUNDS``, both on by default as in ``perf/live_path.py``)
@@ -212,7 +209,7 @@ def run_live(n_nodes: int = N_NODES, deg: float = 3, rounds: int = 6, lane_group
             raise ValueError(f"only a blocking loop takes a burst, not {mode!r}")
     return asyncio.run(_run(api, n_nodes, deg, lane_groups, lane_seeds, edge_churn,
                             scalar_churn, lat_waves, edges, observer, fuse_depth, list(loops),
-                            snapshot_path))
+                            snapshot_path, live_async))
 
 
 def _warm_depths(mode: str, rounds: int, fuse_depth: int) -> list:
@@ -224,7 +221,8 @@ def _warm_depths(mode: str, rounds: int, fuse_depth: int) -> list:
 
 
 async def _run(api: LiveApi, n, deg, lane_groups, lane_seeds, edge_churn, scalar_churn,
-               lat_waves, edges, observer, fuse_depth, loops, snapshot_path=None) -> dict:
+               lat_waves, edges, observer, fuse_depth, loops, snapshot_path=None,
+               live_async=False) -> dict:
     core, sync = api.core, api.sync
     rng = np.random.default_rng(LOOP_SEED)
     src, dst = edges if edges is not None else power_law_dag(n, avg_degree=deg,
@@ -378,6 +376,12 @@ async def _run(api: LiveApi, n, deg, lane_groups, lane_seeds, edge_churn, scalar
                 timed["churn_edges"] += declared
             return rows, declared
 
+        if live_async:
+            # the loops' fused sweeps run ADAPTIVELY: a device-side
+            # fixed-point loop (a seeded sweep + counted extra sweeps to
+            # quiescence) replaces the fixed worst-case pass count; the
+            # loops' exactness checks certify the mode
+            gdev.set_adaptive_passes(True)
         loop_records = []
         for mode, rounds, *burst in loops:
             _notify(observer, "begin_loop", ctx, mode, rounds)
@@ -390,6 +394,7 @@ async def _run(api: LiveApi, n, deg, lane_groups, lane_seeds, edge_churn, scalar
             _notify(observer, "end_loop", ctx, mode, rec)
             loop_records.append(rec)
         _notify(observer, "after_loop", ctx)
+        async_stall_ms = _async_stall_ms(api, gdev, block, sync) if live_async else None
         snapshot_save_s, restore_s, snapshot_bytes = (
             _restore_leg(api, gdev, snapshot_path) if api.checkpoint is not None
             else (None, None, None))
@@ -422,6 +427,12 @@ async def _run(api: LiveApi, n, deg, lane_groups, lane_seeds, edge_churn, scalar
             "snapshot_save_s": snapshot_save_s,
             "restore_s": restore_s,
             "snapshot_bytes": snapshot_bytes,
+            # the adaptive sweep mode: whether the loops ran the device-side
+            # fixed-point sweeps, how many dispatches did, and the per-wave
+            # barrier stall the microbench measured reclaimed
+            "live_async": live_async,
+            "live_adaptive_stages": gdev.adaptive_stages if live_async else None,
+            "live_level_stall_ms": async_stall_ms,
             "cut": list(CUT),
         }
         if len(loop_records) > 1:
@@ -429,6 +440,44 @@ async def _run(api: LiveApi, n, deg, lane_groups, lane_seeds, edge_churn, scalar
         return record
     finally:
         core.set_default_hub(old)
+
+
+def _async_stall_ms(api: LiveApi, gdev, block, sync, reps: int = 12) -> Optional[float]:
+    """``perf/live_path.py``'s adaptive-pass stall microbench: the same
+    single-seed union wave timed (median of ``reps``) at the FIXED worst-case
+    pass count and with the adaptive fixed-point sweep; the difference,
+    floored at 0, is the per-wave barrier stall the adaptive mode reclaims,
+    recorded as ``fusion_mesh_level_stall_ms``. The lat shortcut is off so
+    both take the fused sweep the loops ride; the seed is invalid after the
+    first call, so every timed wave leaves the state as it found it."""
+    import importlib
+
+    if gdev._topo_mirror is None:
+        return None
+    pkg = api.core.__name__.rsplit(".", 1)[0]
+    record = importlib.import_module(f"{pkg}.parallel.routed_wave").record_level_stall_ms
+    m = gdev._topo_mirror
+    m["lat"] = None
+    probe_seed = [[int(block.base)]]
+
+    def union_ms(passes: int) -> float:
+        m["passes"] = passes
+        gdev.run_waves_union(probe_seed)  # warm (untimed)
+        samples = []
+        for _ in range(reps):
+            sync()
+            t0 = time.perf_counter()
+            gdev.run_waves_union(probe_seed)
+            sync()
+            samples.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(samples))
+
+    fixed_ms = union_ms(gdev.FUSED_PASS_MAX)
+    adaptive_ms = union_ms(0)
+    stall_ms = max(fixed_ms - adaptive_ms, 0.0)
+    record(stall_ms, cause=getattr(gdev, "last_cause_id", None))
+    gdev.clear_invalid()
+    return stall_ms
 
 
 def _restore_leg(api: LiveApi, gdev, path: Optional[str] = None) -> tuple:

@@ -68,6 +68,11 @@ KERNELS: Dict[str, tuple] = {
         "packed_pull_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _LL,
                                _I, _I, _I, _I, _P],
     }),
+    "routed_level": ("routed_level.cu", {
+        "routed_level_launch": [_P, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+        "routed_seed_launch": [_P, _P, _I, _I, _P, _P, _P, _P, _P],
+    }),
 }
 
 #: host library → (source file, {C entry: (argument types, result type)})

@@ -12,9 +12,15 @@ the JAX package's 8 virtual CPU devices. A mesh whose shards span more than
 one card raises: a ring across cards needs peer memory over NVLink
 (ROADMAP A.10), and quietly running such a mesh on one card would report
 one-card numbers as multi-card ones.
+
+A mesh has a shape over named axes: 1-D over ``graph`` by default, or the
+routed wave's two-level ``(host, ldev)`` shape for its ``hier`` exchange
+(:meth:`Mesh.reshaped`, JAX's ``devices.reshape(n_hosts, dph)`` over
+``(HOST_AXIS, LDEV_AXIS)``): the same logical shards, grouped into hosts.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
@@ -29,12 +35,20 @@ _MULTI_CARD = "ROADMAP A.10 (multi-card mesh)"
 
 
 class Mesh:
-    """A 1-D mesh of logical shards over the graph axis, all on one device."""
+    """A mesh of logical shards, all on one device: 1-D over the graph axis
+    unless ``shape`` and ``axis_names`` say otherwise (row-major over
+    ``devices``)."""
 
-    def __init__(self, devices: Sequence[torch.device]):
+    def __init__(self, devices: Sequence[torch.device], shape: Optional[Tuple[int, ...]] = None,
+                 axis_names: Tuple[str, ...] = (GRAPH_AXIS,)):
         if not devices:
             raise ValueError("a mesh needs at least one shard")
         self.devices: Tuple[torch.device, ...] = tuple(devices)
+        self.shape: Tuple[int, ...] = (len(self.devices),) if shape is None else tuple(shape)
+        self.axis_names: Tuple[str, ...] = tuple(axis_names)
+        if len(self.shape) != len(self.axis_names) or math.prod(self.shape) != len(self.devices):
+            raise ValueError(f"mesh shape {self.shape} over {self.axis_names} does not tile "
+                             f"{len(self.devices)} shards")
         if len(set(self.devices)) > 1:
             raise NotImplementedError(
                 f"a mesh over {sorted(map(str, set(self.devices)))} spans more than one "
@@ -50,6 +64,10 @@ class Mesh:
     def device(self) -> torch.device:
         """The one device every shard lives on."""
         return self.devices[0]
+
+    def reshaped(self, shape: Tuple[int, ...], axis_names: Tuple[str, ...]) -> "Mesh":
+        """The same shards under another shape and axis names."""
+        return Mesh(self.devices, shape, axis_names)
 
 
 def graph_mesh(

@@ -153,6 +153,10 @@ def test_backend_later_slices_raise():
     entry = backend.packed_mirror()
     assert entry["graph"].mesh.size == 1 and entry["graph"].in_src.device.type == "cpu"
     assert backend.packed_mirror() is entry
-    with pytest.raises(NotImplementedError, match="A.9"):
-        backend.enable_mesh_routing()
+    # the routed mesh mirror (A.9's second part) is ported: routing turns
+    # on, and the mirror builds lazily on the first routed wave
+    from stl_fusion_tpu_torch.cluster import ShardMap
+
+    backend.enable_mesh_routing(ShardMap.initial(["m0"], n_shards=8))
+    assert backend.mesh_routing_active() and backend._routed_mirror is None
     assert pgraph.GraphBackend is pgraph.TpuGraphBackend

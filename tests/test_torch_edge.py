@@ -16,8 +16,10 @@ counts. ``tests/test_admission.py``, ``tests/test_edge_workers.py``, the
 ``ext/`` files and the ``EdgeNode`` cases of ``tests/test_value_plane.py``
 run through the same helper from their own parity files.
 
-Left out, with its slice: ``test_chaos_reshard_sessions_converge_to_oracle``
-(``cluster.ShardMapRouter``, ROADMAP A.9).
+``test_chaos_reshard_sessions_converge_to_oracle`` (seeded chaos on the
+upstream link and a mid-run reshard through ``cluster.ShardMapRouter``) runs
+one package a case (``run_side``): what the chaos does to each call depends
+on timing, so only the reference's assertions hold.
 
 The twin at 20,000 nodes runs through both packages
 (``run_edge(api=EdgeApi(<jax modules>))``), on each value plane, and must
@@ -215,6 +217,13 @@ def test_edge_case(test):
 @pytest.mark.parametrize("test", EDGE_TIMED)
 def test_edge_timed_case(test):
     run_case("test_edge", test, stats=False)
+
+
+@pytest.mark.parametrize("package", PACKAGES)
+def test_chaos_reshard_sessions_converge_to_oracle(package):
+    # what the chaos drops, duplicates and reorders (and so every call's
+    # result) depends on timing: each package's side is a case of its own
+    run_side("test_edge", "test_chaos_reshard_sessions_converge_to_oracle", package)
 
 
 # ---------------------------------------------------------------- the twin

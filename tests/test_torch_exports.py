@@ -24,13 +24,9 @@ PORT = Path(stl_fusion_tpu_torch.__file__).resolve().parent
 
 #: reference modules that ported subpackages re-export from, not ported yet
 UNPORTED_MODULES = {
-    "parallel.routed_wave": "A.9",
     "cluster.membership": "A.9",
     "cluster.mesh_controller": "A.9",
-    "cluster.placement": "A.9",
-    "cluster.rebalancer": "A.9",
     "cluster.rejoin": "A.9",
-    "cluster.router": "A.9",
     "cluster.multihost": "A.9",
 }
 
@@ -104,16 +100,30 @@ def test_unported_modules_are_absent_and_named():
         assert slice_.startswith("A.")
 
 
-def test_write_path_entry_points_are_the_ports():
+def test_write_path_entry_points_are_the_ports(tmp_path):
+    import numpy as np
+
     import stl_fusion_tpu_torch.checkpoint as ckpt
     import stl_fusion_tpu_torch.commands as commands
+    from stl_fusion_tpu_torch.cluster import DevicePlacement, ShardMap
     from stl_fusion_tpu_torch.core import FusionHub
+    from stl_fusion_tpu_torch.parallel import RoutedShardedGraph, graph_mesh
 
     hub = FusionHub()
     assert isinstance(hub.commander, commands.Commander)
     assert hub.commander is hub.commander
     assert stl_fusion_tpu_torch.save_graph is ckpt.save_graph
-    with pytest.raises(NotImplementedError, match="A.9"):
-        ckpt.save_mesh_shards(None, "unused.npz")
-    with pytest.raises(NotImplementedError, match="A.9"):
-        ckpt.restore_mesh_shards(None, "unused.npz")
+    # the routed mesh (A.9's second part) is ported: its shard state round-trips
+    src, dst = np.arange(0, 63), np.arange(1, 64)
+
+    def routed():
+        pl = DevicePlacement.build(ShardMap.initial(["a", "b"], n_shards=8), 2, 64)
+        return RoutedShardedGraph(src, dst, 64, pl, mesh=graph_mesh(devices=["cpu"] * 2))
+
+    g = routed()
+    assert g.run_wave_collect([40])[0] == 24
+    path = str(tmp_path / "mesh.npz")
+    assert ckpt.save_mesh_shards(g, path) == 8
+    g2 = routed()
+    assert ckpt.restore_mesh_shards(g2, path) == {"restored": 8, "map_epoch": 0}
+    assert np.array_equal(g2.invalid_mask(), g.invalid_mask())

@@ -1265,3 +1265,90 @@ def test_read_twin_device_ids_and_chain_on_card(card):
     assert rec["modes"]["fusion_vectorized_device_ids"]["ops"] == 4 * 8 * 65_536
     assert rec["modes"]["fusion_device_chained"]["ops"] == 8 * 65_536
     assert rec["fusion_device_chained"] > 0
+
+
+# ---------------------------------------------------------------- routed_level
+def _routed_pair(card, exchange, dph=None, depth=0, n=6000):
+    """The same routed graph on the card and on the CPU (8 logical shards)."""
+    from stl_fusion_tpu_torch.cluster import DevicePlacement, ShardMap
+    from stl_fusion_tpu_torch.parallel import RoutedShardedGraph
+
+    src, dst = power_law_dag(n, avg_degree=3.0, seed=3)
+    epoch = np.zeros(n, np.int32)
+    epoch[np.random.default_rng(2).choice(n, n // 50, replace=False)] = 1
+    pl = DevicePlacement.build(ShardMap.initial(["a", "b"], n_shards=32), 8, n,
+                               devices_per_host=dph)
+    kw = dict(edge_dst_epoch=np.zeros(len(dst), np.int32), node_epoch=epoch, exchange=exchange,
+              exchange_async=depth > 0, async_depth=max(depth, 1))
+    return [RoutedShardedGraph(src, dst, n, pl, mesh=graph_mesh(devices=[d] * 8), **kw)
+            for d in (card, torch.device("cpu"))]
+
+
+@pytest.mark.parametrize("exchange,dph", [("a2a", None), ("tree", None), ("gather", None),
+                                          ("hier", 4)])
+@pytest.mark.parametrize("form", ["level", "spec", "resized"])
+def test_routed_level_kernel_matches_plain(card, exchange, dph, form):
+    """One level of every shard (the exchange level, the speculative local
+    level, and the level after an in-place bucket resize) on the card
+    against the plain version, from the same frontier and invalid state."""
+    from stl_fusion_tpu_torch.ops import routed_wave as rw
+
+    g, _cpu = _routed_pair(card, exchange, dph)
+    if form == "resized":
+        assert g._try_grow("bucket", g.bucket_cap + 1)
+        if exchange == "hier":
+            assert g._try_grow("hbucket", g.hbucket_cap + 1)
+    rng = np.random.default_rng(7)
+    rows = g.perm[rng.choice(g.n_nodes, 300, replace=False)]
+    f = g._words_of_rows(rows)
+    inv0 = torch.from_numpy(np.random.default_rng(8).integers(
+        -(2**31), 2**31, g.n_words, dtype=np.int32) & 0x11111111).to(card)
+    w = g._wave
+    spec = form == "spec"
+    x, stride, cross = (f, g.w_local, None) if spec else w.exchange(f)
+    outs = []
+    for fn in (rw.routed_level, rw.routed_level_plain):
+        inv, nxt = inv0.clone(), torch.zeros_like(f)
+        acc = f.clone()
+        out = torch.zeros(rw.slot_width(g.n_dev), dtype=torch.int64, device=card)
+        before = rw.launches
+        fn(x, stride, cross, w.layout, w.nepoch, inv, nxt, out, acc=acc, spec=spec)
+        torch.cuda.synchronize()
+        if fn is rw.routed_level:
+            assert rw.launches == before + 1
+        outs.append((inv, nxt, acc, out))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    assert int(outs[0][3][g.n_dev]) > 0
+    # a launch whose count it waits on is 0 does nothing
+    inv, nxt = inv0.clone(), torch.zeros_like(f)
+    out = torch.zeros(rw.slot_width(g.n_dev), dtype=torch.int64, device=card)
+    zero = torch.zeros((), dtype=torch.int64, device=card)
+    rw.routed_level(x, stride, cross, w.layout, w.nepoch, inv, nxt, out, go=zero, spec=spec)
+    assert torch.equal(inv, inv0) and not bool(nxt.any()) and not bool(out.any())
+
+
+@pytest.mark.parametrize("exchange,dph,depth", [("a2a", None, 0), ("hier", 4, 0),
+                                                ("a2a", None, 2)])
+@pytest.mark.parametrize("budget", [32, 2])
+def test_routed_chain_on_card_matches_cpu(card, exchange, dph, depth, budget):
+    """A routed chain dispatched and harvested on the card equals the same
+    chain on the CPU (counts, ids, levels, the final invalid state); with a
+    budget of 2 levels a stage the stages overrun it and the harvest
+    finishes them with host-read levels."""
+    rng = np.random.default_rng(11)
+    graphs = _routed_pair(card, exchange, dph, depth)
+    # low ids: deep closures (edges run from lower to higher ids)
+    stages = [rng.choice(300, size=3, replace=False).tolist() for _ in range(4)]
+    got = []
+    for g in graphs:
+        g.chain_levels = budget
+        g.run_wave_collect([5999])
+        counts, ids, info = g.harvest_union_chain(g.dispatch_union_chain(stages))
+        got.append((counts.tolist(), [sorted(i.tolist()) for i in ids],
+                    info["levels"].tolist(), g.invalid_mask(), info["host_finished"],
+                    g.stats()))
+    (c0, i0, l0, m0, h0, s0), (c1, i1, l1, m1, h1, s1) = got
+    assert c0 == c1 and i0 == i1 and l0 == l1 and np.array_equal(m0, m1) and h0 == h1
+    assert s0 == s1
+    assert (h0 > 0) == (budget == 2)

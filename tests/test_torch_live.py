@@ -159,3 +159,19 @@ def test_live_loops_run_one_after_another_on_one_stack(tmp_path):
     assert rec["loops"][1]["live_superround_dispatches"] == 1
     assert rec["loops"][2]["live_eager_fallback_rounds"] == 0
     assert set(rec["cold_start"]["programs"]) == {"superround", "chain"}
+
+
+def test_live_async_twin_matches_jax():
+    """``LIVE_ASYNC=1``: the super-round loop's sweeps run adaptively (a
+    device-side fixed point, counted stages), then the stall microbench
+    (the fixed pass count against the adaptive sweep) records
+    ``fusion_mesh_level_stall_ms``; through both packages."""
+    want, want_events = _run(JAX_API, live_async=True)
+    got, got_events = _run(port_api("cpu"), live_async=True)
+    _same_events(got_events, want_events)
+    for key in ("live_total_inv", "live_fused_chain_dispatches", "live_eager_fallback_rounds",
+                "mirror_patches", "mirror_rebuilds", "live_async", "live_adaptive_stages"):
+        assert got[key] == want[key], key
+    assert got["live_async"] and got["live_adaptive_stages"] > 0
+    assert got["live_level_stall_ms"] is not None and got["live_level_stall_ms"] >= 0
+    assert not any("LIVE_ASYNC" in c for c in got["cut"])

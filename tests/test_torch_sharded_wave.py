@@ -563,7 +563,12 @@ def test_backend_mesh_slices_still_raise():
     # the row-block mesh lane burst is ported too (A.9's first part): row 0
     # is already invalid, so its lane is blocked and counts nothing
     assert backend.cascade_rows_lanes_sharded(block, [[0], [1]]).tolist() == [0, 1]
-    with pytest.raises(NotImplementedError, match="A.9"):
-        backend.enable_mesh_routing(None)
+    # the routed mesh is ported too (A.9's second part): a bound row seeds a
+    # routed wave on the default mesh, one shard on the backend's device
+    from stl_fusion_tpu_torch.cluster import ShardMap
+
+    backend.enable_mesh_routing(ShardMap.initial(["m0"], n_shards=8))
+    assert backend.cascade_rows_batch_routed(block, [1]) == 0  # row 1 is already invalid
+    assert backend.routed_mirror()["graph"].mesh.size == 1
     # the default sharded mirror is one shard on the backend's device
     assert backend.sharded_mirror().mesh.size == 1

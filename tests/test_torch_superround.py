@@ -9,8 +9,10 @@ fence sets (the ``newly_hooks`` stream), invalid masks, table values,
 validity and staleness. A super-round of K rounds must also equal K
 sequential ``cascade_rows_lanes`` + ``refresh_block_on_device`` pairs of
 the same package. On the CPU every program runs its plain composition (the
-card's CUDA graph capture is held by ``tests/test_torch_gpu.py``). Left out:
-the routed-mesh super-round (ROADMAP A.9). Tolerance: exact."""
+card's CUDA graph capture is held by ``tests/test_torch_gpu.py``). The
+routed-mesh super-round (``test_routed_superround_zero_host_relay_reentries``)
+runs on JAX's 8 virtual CPU devices and on 8 logical shards on the CPU, its
+per-round counts, fences and final state EQUAL. Tolerance: exact."""
 import torch_threads  # noqa: F401 — one torch thread a test process
 import importlib
 
@@ -488,12 +490,71 @@ def test_superround_metrics_exported():
 
 
 def test_routed_superround_raises_naming_its_slice():
-    """The routed branch (mesh mode) is ROADMAP A.9 in the port."""
+    """The routed branch (mesh mode) is ported: with routing on and the
+    routed mirror built, the back buffer packs through the mirror's row
+    permutation (it deferred to the dispatch before the mirror existed)."""
+    from stl_fusion_tpu_torch.cluster import ShardMap
     from stl_fusion_tpu_torch.graph.superround import StagedSeeds
+    from stl_fusion_tpu_torch.parallel import graph_mesh
 
     hub, b, _svc, _table, blk = make_stack(PORT)
+    b.enable_mesh_routing(ShardMap.initial(["m0", "m1"], n_shards=32),
+                          mesh=graph_mesh(devices=["cpu"] * 8))
     prog = b.enable_super_rounds(blk, depth=1)
-    with pytest.raises(NotImplementedError, match="A.9"):
-        prog._pack_routed(StagedSeeds([[[0]]], [[0]], [1], routed=True))
+    staged = StagedSeeds([[[0, 5]]], [[0, 5]], [1], routed=True)
+    prog._pack_routed(staged)
+    assert staged.routed_staged is None  # no routed mirror yet
+    graph = b.routed_mirror()["graph"]
+    prog._pack_routed(staged)
+    assert staged.routed_staged["stages"] == 1
+    assert staged.routed_staged["mat"][0, :2].tolist() == graph.perm[[0, 5]].tolist()
     with pytest.raises(ValueError, match="already"):
         b.enable_super_rounds(blk)
+
+
+# ---------------------------------------------------------------- routed mesh
+def routed_superround(pkg):
+    """``tests/test_superround.py::test_routed_superround_zero_host_relay_reentries``
+    through one package: 2 rounds of 2 groups in ONE routed chain dispatch,
+    equal to one union wave a round on the single-device twin."""
+    name, core = pkg[0], pkg[1]
+    cluster = importlib.import_module(f"{core.__name__.rsplit('.', 1)[0]}.cluster")
+    parallel = importlib.import_module(f"{core.__name__.rsplit('.', 1)[0]}.parallel")
+    mesh = parallel.graph_mesh() if name == "jax" else parallel.graph_mesh(devices=["cpu"] * 8)
+    bursts = round_bursts(2, groups=2, rng=np.random.default_rng(11))
+    hub_a, b_a, _s, table_a, blk_a = make_stack(pkg)
+    old = core.set_default_hub(hub_a)
+    try:
+        fences = fence_collector(b_a)
+        b_a.enable_mesh_routing(cluster.ShardMap.initial(["m0", "m1"], n_shards=32), mesh=mesh)
+        prog = b_a.enable_super_rounds(blk_a, depth=2)
+        ticket = prog.dispatch(prog.stage(bursts))
+        prog.drain()
+        got = [int(c.sum()) for c in ticket.per_burst]
+        assert prog.superrounds_dispatched == 1
+        assert prog.eager_rounds == 0 and prog.faults == 0
+        routed_graph = b_a._routed_mirror["graph"]
+        assert routed_graph.waves_run >= 2
+        assert ticket.routed_pending["dispatches"] == 1
+        out = {"counts": got, "fences": [ids for _seq, ids in fences],
+               "stats": {k: v for k, v in routed_graph.stats().items()}, **state(b_a, table_a)}
+        assert table_a.stale_count() == 0
+    finally:
+        core.set_default_hub(old)
+    hub_b, b_b, _s2, table_b, blk_b = make_stack(pkg)
+    old = core.set_default_hub(hub_b)
+    try:
+        want = []
+        for groups in bursts:
+            want.append(b_b.cascade_rows_batch(blk_b, sorted({x for g in groups for x in g})))
+        b_b.refresh_block_on_device(blk_b)
+        assert got == want
+        same({k: out[k] for k in ("invalid", "values")},
+             {"invalid": np.asarray(b_b.graph.invalid_mask()), "values": values(table_b)})
+    finally:
+        core.set_default_hub(old)
+    return out
+
+
+def test_routed_superround_zero_host_relay_reentries():
+    both(routed_superround)
