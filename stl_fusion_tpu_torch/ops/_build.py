@@ -68,10 +68,10 @@ KERNELS: Dict[str, tuple] = {
         "packed_pull_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _LL,
                                _I, _I, _I, _I, _P],
     }),
+    # the arguments packed as int64 (``LevelArgs``: 26, ``SeedArgs``: 8), then the stream
     "routed_level": ("routed_level.cu", {
-        "routed_level_launch": [_P, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-        "routed_seed_launch": [_P, _P, _I, _I, _P, _P, _P, _P, _P],
+        "routed_level_launch": [ctypes.c_char_p, _P],
+        "routed_seed_launch": [ctypes.c_char_p, _P],
     }),
 }
 

@@ -6,9 +6,9 @@ Replaces the XLA level of
 package has no Pallas kernel for it): ``merge_fire`` (``:297-310``, the
 sync body ``:357-371``) and the asynchronous mode's speculative local level
 (``spec_body``, ``:314-327``), for every shard of a one-card mesh in one
-launch (grid y = shard), as :func:`~.wave.wave_expand_shards` does for the
-sharded wave. The seed step (``fresh = seeds & ~inv``, ``inv |= seeds``,
-the fresh count and the any-seed flag, ``:292-295``) is a third form.
+launch, as :func:`~.wave.wave_expand_shards` does for the sharded wave. The
+seed step (``fresh = seeds & ~inv``, ``inv |= seeds``, the fresh count and
+the any-seed flag, ``:292-295``) is a third form.
 
 Layout (``parallel/routed_wave.py`` builds it): the node state is global
 and bit-packed, shard ``d`` owning words ``[d * w_local, (d + 1) *
@@ -24,20 +24,27 @@ per-edge array (``routed_wave.py:52-66``).
 A level reads the exchanged words ``x`` (row ``d`` at ``d * x_stride``)
 and, for ``hier``, the host tree's ``cross`` words, through ``_lookup``'s
 index for the mode (:data:`MODES`); the ``spec`` form reads the shard's own
-frontier words through ``elsrc``. A firing edge sets its row's invalid bit
-with an atomic OR, and the edge that found it clear sets the row in
-``next`` (and in ``acc``, the async mode's ever-lit accumulator, when
-given) and counts it: ``out[d]`` the shard's newly rows, ``out[n_dev]`` the
-total. A launch given ``go`` (a count of a slot written before) returns at
-once when it is 0, so a chain enqueues a budget of levels with no readback.
+frontier words through ``elsrc``. The rows that fire and were valid at the
+start of the level are ORed into ``next``, then into ``invalid`` (and into
+``acc``, the async mode's ever-lit accumulator, when given) and counted:
+``out[d]`` the shard's newly rows, ``out[n_dev]`` the total. A launch given
+``go`` (a count of a slot written before) returns at once when it is 0, so
+a chain enqueues a budget of levels with no readback.
 
 A CPU tensor takes the plain version; a CUDA tensor launches
-``csrc/routed_level.cu`` or raises. ``launches`` counts the CUDA launches
-(one per wrapper call on the card), ``form_launches`` by form and lookup.
+``csrc/routed_level.cu`` or raises. The kernel takes at most
+:data:`MAX_SHARDS` shards and 16-byte aligned routing arrays. Its C entries
+take one packed struct of 64-bit arguments: the layout's part is packed once
+per :class:`RoutedEdges` (the graph makes a new one after every upload) and
+each call packs only its own pointers, on an entry resolved once. ``launches``
+counts the CUDA launches (one per wrapper call on the card),
+``form_launches`` by form and lookup.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+import struct
+from dataclasses import dataclass, field
+from typing import Optional
 
 import torch
 
@@ -45,6 +52,7 @@ from . import _build
 from .bitops import pack_bits, unpack_bits
 
 __all__ = [
+    "MAX_SHARDS",
     "MODES",
     "RoutedEdges",
     "form_launches",
@@ -59,6 +67,8 @@ __all__ = [
 #: the exchange → the kernel's lookup mode (``tree`` reads the same
 #: device-order vector as ``gather`` on one card)
 MODES = {"gather": 0, "tree": 0, "a2a": 1, "hier": 2}
+#: shards a launch takes (a block keeps its counts per shard in shared memory)
+MAX_SHARDS = 64
 
 #: CUDA launches since the last reset, of every form
 launches = 0
@@ -69,8 +79,16 @@ launches = 0
 form_launches = {"level": 0, "spec": 0, "seed": 0, "gather": 0, "a2a": 0, "hier": 0}
 _LOOKUPS = ("gather", "a2a", "hier")  # by kernel mode
 
+#: ``LevelArgs`` of the C entry: the layout's 16 int64, then the call's 10
+_LAYOUT_ARGS = struct.Struct("<16q")
+_CALL_ARGS = struct.Struct("<10q")
+#: ``SeedArgs``: 8 int64
+_SEED_ARGS = struct.Struct("<8q")
+_entries: dict = {}  # C entry name → its ctypes function, resolved at the first launch
 
-class RoutedEdges(NamedTuple):
+
+@dataclass(eq=False)
+class RoutedEdges:
     """The per-edge tensors of every shard and the geometry a level needs."""
 
     eprod: torch.Tensor  # int32[n_dev * e_cap]
@@ -89,6 +107,8 @@ class RoutedEdges(NamedTuple):
     hcap: int
     dph: int
     n_hosts: int
+    #: the C entry's layout part, packed at the first launch on the card
+    launch_args: Optional[bytes] = field(default=None, init=False, repr=False)
 
 
 def slot_width(n_dev: int) -> int:
@@ -100,6 +120,39 @@ def slot_width(n_dev: int) -> int:
 def _check(words: torch.Tensor, what: str) -> None:
     if words.dtype != torch.int32 or not words.is_contiguous():
         raise ValueError(f"routed_level: {what} must be contiguous int32 words")
+
+
+def _entry(name: str):
+    fn = _entries.get(name)
+    if fn is None:
+        fn = _entries[name] = _build.entry("routed_level", name)
+    return fn
+
+
+def _layout_args(L: RoutedEdges, dev: int) -> bytes:
+    """``L``'s part of the level's launch arguments, checked and packed
+    once per layout."""
+    args = L.launch_args
+    if args is None:
+        if not 1 <= L.n_dev <= MAX_SHARDS:
+            raise ValueError(f"routed_level: {L.n_dev} shards; a launch takes 1 to "
+                             f"{MAX_SHARDS}")
+        if max(L.n_dev * L.e_cap, L.n_dev * L.n_local) >= 2**31:
+            raise ValueError("routed_level: the kernel indexes edge slots and rows in 32 bits")
+        tensors = (L.eprod, L.ebslot, L.ebit, L.edst, L.elsrc, L.eepoch, L.n_edges)
+        for t in tensors:
+            _check(t, "the layout's edge arrays")
+            if t.get_device() != dev:
+                raise ValueError("routed_level: inputs must share one device")
+        ptrs = [t.data_ptr() for t in tensors]
+        if any(p & 15 for p in ptrs[:5]):
+            raise ValueError("routed_level: the routing arrays must be 16-byte aligned")
+        args = L.launch_args = _LAYOUT_ARGS.pack(
+            *ptrs, L.e_cap, L.max_edges, L.n_local, L.n_dev, L.mode, L.icap, L.hcap, L.dph,
+            L.n_hosts)
+    elif L.n_edges.get_device() != dev:
+        raise ValueError("routed_level: inputs must share one device")
+    return args
 
 
 def routed_level_plain(x, x_stride: int, cross, L: RoutedEdges, nepoch, invalid, nxt, out,
@@ -167,22 +220,23 @@ def routed_level(x, x_stride: int, cross, L: RoutedEdges, nepoch, invalid, nxt, 
         _check(t, what)
     if out.dtype != torch.int64 or out.numel() < slot_width(L.n_dev):
         raise ValueError("routed_level: out must be int64 with n_dev + 2 entries")
-    if x.device != invalid.device or L.eprod.device != invalid.device:
-        raise ValueError("routed_level: inputs must share one device")
-    if invalid.device.type == "cpu":
+    if not invalid.is_cuda:
+        if x.device != invalid.device or L.eprod.device != invalid.device:
+            raise ValueError("routed_level: inputs must share one device")
+        if invalid.device.type != "cpu":
+            raise ValueError(f"routed_level: unsupported device {invalid.device}")
         routed_level_plain(x, x_stride, cross, L, nepoch, invalid, nxt, out, go, acc, spec)
         return
-    if invalid.device.type != "cuda":
-        raise ValueError(f"routed_level: unsupported device {invalid.device}")
-    spec_cross = cross if cross is not None else x
-    _build.launch(
-        "routed_level", "routed_level_launch", x.data_ptr(), x_stride, spec_cross.data_ptr(),
-        L.eprod.data_ptr(), L.ebslot.data_ptr(), L.ebit.data_ptr(), L.edst.data_ptr(),
-        L.elsrc.data_ptr(), L.eepoch.data_ptr(), L.n_edges.data_ptr(), nepoch.data_ptr(),
+    dev = invalid.get_device()
+    if x.get_device() != dev or nxt.get_device() != dev or out.get_device() != dev:
+        raise ValueError("routed_level: inputs must share one device")
+    args = _layout_args(L, dev) + _CALL_ARGS.pack(
+        x.data_ptr(), x_stride, (x if cross is None else cross).data_ptr(), nepoch.data_ptr(),
         invalid.data_ptr(), nxt.data_ptr(), 0 if acc is None else acc.data_ptr(),
-        out.data_ptr(), 0 if go is None else go.data_ptr(), L.e_cap, L.max_edges, L.n_local,
-        L.n_dev, L.mode, L.icap, L.hcap, L.dph, L.n_hosts, 1 if spec else 0,
-    )
+        out.data_ptr(), 0 if go is None else go.data_ptr(), 1 if spec else 0)
+    err = _entry("routed_level_launch")(args, torch._C._cuda_getCurrentRawStream(dev))
+    if err != 0:
+        raise RuntimeError(f"routed_level: routed_level_launch failed with CUDA error {err}")
     launches += 1
     form_launches["spec" if spec else "level"] += 1
     if not spec:
@@ -219,13 +273,21 @@ def routed_seed(seeds, invalid, out, n_dev: int, w_local: int, chain=None) -> No
     global launches
     _check(seeds, "seeds")
     _check(invalid, "invalid")
-    if invalid.device.type == "cpu":
+    if not invalid.is_cuda:
+        if invalid.device.type != "cpu":
+            raise ValueError(f"routed_level: unsupported device {invalid.device}")
         routed_seed_plain(seeds, invalid, out, n_dev, w_local, chain)
         return
-    if invalid.device.type != "cuda":
-        raise ValueError(f"routed_level: unsupported device {invalid.device}")
+    if not 1 <= n_dev <= MAX_SHARDS:
+        raise ValueError(f"routed_level: {n_dev} shards; a launch takes 1 to {MAX_SHARDS}")
+    dev = invalid.get_device()
+    if seeds.get_device() != dev or out.get_device() != dev:
+        raise ValueError("routed_level: inputs must share one device")
     ptrs = (0, 0, 0) if chain is None else tuple(t.data_ptr() for t in chain)
-    _build.launch("routed_level", "routed_seed_launch", seeds.data_ptr(), invalid.data_ptr(),
-                  w_local, n_dev, out.data_ptr(), *ptrs)
+    args = _SEED_ARGS.pack(seeds.data_ptr(), invalid.data_ptr(), w_local, n_dev,
+                           out.data_ptr(), *ptrs)
+    err = _entry("routed_seed_launch")(args, torch._C._cuda_getCurrentRawStream(dev))
+    if err != 0:
+        raise RuntimeError(f"routed_level: routed_seed_launch failed with CUDA error {err}")
     launches += 1
     form_launches["seed"] += 1

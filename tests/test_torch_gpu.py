@@ -7,6 +7,8 @@ a machine with a card and no JAX:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 
 Elsewhere every test skips with its reason."""
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -1352,3 +1354,186 @@ def test_routed_chain_on_card_matches_cpu(card, exchange, dph, depth, budget):
     assert c0 == c1 and i0 == i1 and l0 == l1 and np.array_equal(m0, m1) and h0 == h1
     assert s0 == s1
     assert (h0 > 0) == (budget == 2)
+
+
+#: every lookup of the wide routed graph: (exchange, devices per host)
+WIDE_LOOKUPS = [("a2a", None), ("tree", None), ("gather", None), ("hier", 4)]
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_routed(exchange, dph):
+    """A routed graph on the card wide enough that every shard spans many
+    warp tiles and blocks: 200,000 nodes on 8 logical shards, ~75,000 live
+    edge slots a shard; 1 node in 50 epoch-bumped (its in-edges are stale)."""
+    from stl_fusion_tpu_torch.cluster import DevicePlacement, ShardMap
+    from stl_fusion_tpu_torch.parallel import RoutedShardedGraph
+
+    n, card = 200_000, torch.device("cuda")
+    src, dst = power_law_dag(n, avg_degree=3.0, seed=3)
+    epoch = np.zeros(n, np.int32)
+    epoch[np.random.default_rng(2).choice(n, n // 50, replace=False)] = 1
+    pl = DevicePlacement.build(ShardMap.initial(["a", "b"], n_shards=32), 8, n,
+                               devices_per_host=dph)
+    return RoutedShardedGraph(src, dst, n, pl, mesh=graph_mesh(devices=[card] * 8),
+                              exchange=exchange, edge_dst_epoch=np.zeros(len(dst), np.int32),
+                              node_epoch=epoch, exchange_async=True, async_depth=1)
+
+
+def _relayout(g, e_cap, n_edges):
+    """``g``'s edge arrays re-sliced at ``e_cap`` slots a shard, shard ``d``
+    keeping its first ``n_edges[d]`` edges live: a layout the graph would
+    not build (``e_cap`` not a multiple of 4, a shard with no live edge,
+    shards of very different lengths), for the kernel to take."""
+    from stl_fusion_tpu_torch.ops import routed_wave as rw
+
+    L0, old = g._wave.layout, g.e_cap
+    assert all(k <= min(c, e_cap) for k, c in zip(n_edges, g._dev_edge_count))
+    cols = []
+    for name, pad in (("_h_eprod", 0), ("_h_ebslot", 0), ("_h_ebit", 0),
+                      ("_h_edst", g.n_local), ("_h_elsrc", g.n_local), ("_h_eep", -1)):
+        a = np.full((g.n_dev, e_cap), pad, np.int32)
+        k = min(old, e_cap)
+        a[:, :k] = getattr(g, name).reshape(g.n_dev, old)[:, :k]
+        cols.append(torch.from_numpy(a.reshape(-1)).to(L0.eprod.device))
+    return rw.RoutedEdges(*cols, torch.tensor(n_edges, dtype=torch.int32,
+                                              device=L0.eprod.device),
+                          max(n_edges), e_cap, L0.n_local, g.n_dev, L0.mode, L0.icap, L0.hcap,
+                          L0.dph, L0.n_hosts)
+
+
+def _wide_level_matches_plain(g, L, spec, seed=7):
+    """One ``routed_level`` launch on layout ``L`` of ``g`` against the
+    plain version from the same frontier (30 % of the rows) and invalid
+    state (~25 % of the bits): ``invalid``, ``next``, ``acc`` and every
+    ``out`` entry equal. Then ``go`` = 0 changes nothing and ``go`` = 5
+    runs the level. Returns the kernel's ``out``."""
+    from stl_fusion_tpu_torch.ops import routed_wave as rw
+
+    card = L.eprod.device
+    rng = np.random.default_rng(seed)
+    f = g._words_of_rows(g.perm[rng.choice(g.n_nodes, g.n_nodes * 3 // 10, replace=False)])
+    inv0 = torch.from_numpy(rng.integers(-(2**31), 2**31, g.n_words, dtype=np.int32)
+                            & rng.integers(-(2**31), 2**31, g.n_words, dtype=np.int32)).to(card)
+    w = g._wave
+    x, stride, cross = (f, g.w_local, None) if spec else w.exchange(f)
+
+    def level(fn, go=None):
+        inv, nxt, acc = inv0.clone(), torch.zeros_like(f), f.clone()
+        out = torch.zeros(rw.slot_width(g.n_dev), dtype=torch.int64, device=card)
+        fn(x, stride, cross, L, w.nepoch, inv, nxt, out, go=go, acc=acc, spec=spec)
+        torch.cuda.synchronize()
+        return inv, nxt, acc, out
+
+    before = rw.launches
+    got, want = level(rw.routed_level), level(rw.routed_level_plain)
+    assert rw.launches == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    zero = torch.zeros((), dtype=torch.int64, device=card)
+    inv, nxt, acc, out = level(rw.routed_level, go=zero)
+    assert torch.equal(inv, inv0) and torch.equal(acc, f) and not bool(nxt.any())
+    assert not bool(out.any())
+    for a, b in zip(level(rw.routed_level, go=zero + 5), want):
+        assert torch.equal(a, b)
+    return got[3].cpu().numpy()
+
+
+@pytest.mark.parametrize("exchange,dph", WIDE_LOOKUPS)
+@pytest.mark.parametrize("form", ["level", "spec"])
+def test_routed_level_wide_graph_matches_plain(card, exchange, dph, form):
+    """Every lookup and the speculative form on the graph's own layout,
+    every shard spanning hundreds of warp tiles: exact, every shard lit."""
+    g = _wide_routed(exchange, dph)
+    out = _wide_level_matches_plain(g, g._wave.layout, form == "spec")
+    assert (out[: g.n_dev] > 0).all() and out[g.n_dev] == out[: g.n_dev].sum()
+
+
+@pytest.mark.parametrize("exchange,dph", [("a2a", None), ("hier", 4), ("gather", None)])
+@pytest.mark.parametrize("pad", [1, 2, 3])
+@pytest.mark.parametrize("form", ["level", "spec"])
+def test_routed_level_odd_layouts_match_plain(card, exchange, dph, pad, form):
+    """``e_cap`` not a multiple of 4 (every shard's first slot off a 16-byte
+    boundary but shard 0's), shard 1 with no live edge, and shards of very
+    different lengths (all, 37, 1,000, 5, a third, 129 and 4 slots): exact,
+    and the empty shard counts 0."""
+    g = _wide_routed(exchange, dph)
+    full = g._dev_edge_count
+    n_edges = [int(full[0]), 0, 37, 1000, 5, int(full[5]) // 3, 129, 4]
+    L = _relayout(g, -(-g.e_cap // 4) * 4 + pad, n_edges)
+    assert L.e_cap % 4 != 0
+    out = _wide_level_matches_plain(g, L, form == "spec", seed=pad)
+    assert out[1] == 0 and out[0] > 0
+
+
+def _seed_inputs(card, n_dev, w_local, seed):
+    """Seed words over ``n_dev`` shards of ``w_local`` words (held as row 1
+    of a buffer whose rows are ``n + 1`` words, so the row starts off a
+    16-byte boundary as a chain stage's seeds do) and invalid words: sparse
+    seeds, one word of all 32 bits, seeds already invalid, shard 2's seeds
+    all already invalid."""
+    rng = np.random.default_rng(seed)
+    n = n_dev * w_local
+    s = np.zeros(n, np.uint32)
+    at = rng.choice(n, n // 40, replace=False)
+    s[at] = np.uint32(1) << rng.integers(0, 32, len(at)).astype(np.uint32)
+    s[5] = 0xFFFFFFFF
+    inv = np.where(rng.random(n) < 0.3, rng.integers(0, 2**32, n, dtype=np.uint64), 0)
+    inv = inv.astype(np.uint32)
+    inv[at[: len(at) // 3]] |= s[at[: len(at) // 3]]  # seeds already invalid
+    sh2 = slice(2 * w_local, 3 * w_local)
+    inv[sh2] |= s[sh2]
+    buf = torch.zeros((2, n + 1), dtype=torch.int32, device=card)
+    buf[1, :n] = torch.from_numpy(s.view(np.int32)).to(card)
+    return buf[1, :n], torch.from_numpy(inv.view(np.int32)).to(card)
+
+
+def _seed_both(seeds, inv0, n_dev, w_local, chain=None):
+    from stl_fusion_tpu_torch.ops import routed_wave as rw
+
+    res = []
+    for fn in (rw.routed_seed, rw.routed_seed_plain):
+        inv = inv0.clone()
+        out = torch.zeros(rw.slot_width(n_dev), dtype=torch.int64, device=inv0.device)
+        ch = None if chain is None else tuple(t.clone() for t in chain)
+        fn(seeds, inv, out, n_dev, w_local, ch)
+        torch.cuda.synchronize()
+        res.append((inv, out) + (() if ch is None else (ch[2],)))
+    for a, b in zip(*res):
+        assert torch.equal(a, b)
+    return res[0]
+
+
+@pytest.mark.parametrize("w_local", [60_001, 3])
+def test_routed_seed_kernel_matches_plain(card, w_local):
+    """The seed step against its plain version over 8 shards (60,001 words
+    each: many blocks, and shards that meet inside an int4; 3 words each:
+    only the head and tail words), from a row off a 16-byte boundary: the
+    invalid words and every ``out`` entry equal; a word of all 32 bits,
+    seeds already invalid (they conduct and do not count) and shard 2 with
+    no fresh seed."""
+    seeds, inv0 = _seed_inputs(card, 8, w_local, seed=w_local)
+    inv, out = _seed_both(seeds, inv0, 8, w_local)
+    out = out.cpu().numpy()
+    assert out[9] == 1 and out[8] == out[:8].sum() > 0
+    if w_local > 3:
+        assert out[2] == 0 and (np.delete(out[:8], 2) > 0).all()
+    # the any-seed flag with no fresh seed: every seed already invalid
+    inv, out = _seed_both(seeds, inv0 | seeds, 8, w_local)
+    assert torch.equal(inv, inv0 | seeds) and out[9] == 1 and not bool(out[:9].any())
+    # no seed at all
+    inv, out = _seed_both(torch.zeros_like(seeds), inv0, 8, w_local)
+    assert torch.equal(inv, inv0) and not bool(out.any())
+
+
+@pytest.mark.parametrize("prev_last,prev_broken", [(0, 0), (3, 0), (0, 1), (7, 1)])
+def test_routed_seed_chain_skip_matches_plain(card, prev_last, prev_broken):
+    """In a chain the seed step runs only after a stage that ran and
+    quiesced; else it changes nothing and marks its own stage broken."""
+    seeds, inv0 = _seed_inputs(card, 8, 1001, seed=1)
+    chain = (torch.tensor(prev_last, dtype=torch.int64, device=card),
+             torch.tensor(prev_broken, dtype=torch.int32, device=card),
+             torch.zeros((), dtype=torch.int32, device=card))
+    inv, out, broken = _seed_both(seeds, inv0, 8, 1001, chain)
+    skip = prev_last != 0 or prev_broken != 0
+    assert int(broken) == int(skip)
+    assert torch.equal(inv, inv0) == skip and bool(out.any()) != skip

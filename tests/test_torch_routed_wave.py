@@ -172,3 +172,54 @@ def test_routed_level_spec_form_equals_jax_async_level(exchange, dph):
     assert np.array_equal(spec_ids, np.unique(dst[lit]))
     assert 0 < len(spec_ids) < len(all_ids)
     assert jg.spec_levels_total == 1
+
+
+def _odd_layout_graphs(n, exchange, dph, empty_dev=3):
+    """JAX's and the port's routed graph on ``n`` nodes laid out as the
+    kernel's awkward cases are: device ``empty_dev`` receives no edge (its
+    shard has no live slot) and ``e_cap`` is not a multiple of 4 (the edge
+    headroom picked for it), so every other shard's slots start off a
+    16-byte boundary somewhere. Seeds and invalid state as
+    :func:`_level_graphs`: one level from the seeds."""
+    src, dst = power_law_dag(n, avg_degree=3.0, seed=3)
+    jpl = jcluster.DevicePlacement.build(jcluster.ShardMap.initial(["a", "b"], n_shards=32), 8,
+                                         n, devices_per_host=dph)
+    ppl = DevicePlacement.build(ShardMap.initial(["a", "b"], n_shards=32), 8, n,
+                                devices_per_host=dph)
+    perm, _inv = ppl.permutation()
+    keep = perm[dst] // ppl.n_local != empty_dev
+    src, dst = src[keep], dst[keep]
+    counts = np.bincount(perm[dst] // ppl.n_local, minlength=8)
+    m = int(counts.max())
+    headroom = 1.3
+    while (int(m * headroom) + 32) % 4 == 0:
+        headroom += 1.0 / m
+    rng = np.random.default_rng(5)
+    seeds = rng.choice(n // 4, size=max(40, n // 100), replace=False)
+    inv0 = _one_level_state(n, src, dst, seeds)
+    epoch = np.zeros(n, dtype=np.int32)
+    epoch[rng.choice(n, size=n // 50, replace=False)] = 1  # stale edges never fire
+    kw = dict(edge_dst_epoch=np.zeros(len(dst), np.int32), node_epoch=epoch, invalid=inv0,
+              exchange=exchange, edge_headroom=headroom)
+    jg = jparallel.RoutedShardedGraph(src, dst, n, jpl, mesh=jparallel.graph_mesh(), **kw)
+    pg = RoutedShardedGraph(src, dst, n, ppl, mesh=graph_mesh(devices=["cpu"] * 8), **kw)
+    assert pg.e_cap == jg.e_cap and pg.e_cap % 4 != 0
+    assert pg._dev_edge_count[empty_dev] == 0 and pg._dev_edge_count.min(initial=1) == 0
+    return jg, pg, seeds, inv0
+
+
+@pytest.mark.parametrize("n,exchange,dph", [(4000, "a2a", None), (200_000, "a2a", None),
+                                            (200_000, "hier", 4), (200_000, "gather", None)])
+def test_routed_level_plain_equals_jax_level_on_odd_layouts(n, exchange, dph):
+    """The plain level against JAX's level where the kernel's tiles meet
+    the layout's edges: ``e_cap`` not a multiple of 4, one shard with no
+    live edges, and the wider graph (200,000 nodes, ~75,000 live slots a
+    shard) the card cases run the kernel on."""
+    jg, pg, seeds, inv0 = _odd_layout_graphs(n, exchange, dph)
+    ids, counts = _plain_level(pg, seeds)
+    count, want, over = jg.run_wave_collect(seeds.tolist())
+    assert not over and count == len(ids) + int((~inv0[seeds]).sum())
+    fresh = seeds[~inv0[seeds]]
+    assert np.array_equal(ids, np.setdiff1d(np.sort(want), fresh))
+    assert counts[pg.n_dev] == len(ids) == counts[: pg.n_dev].sum()
+    assert counts[3] == 0 and len(ids) > 100
