@@ -194,7 +194,8 @@ user calls. Phases, each printing one JSON line:
    with its changed flag held against a before/after comparison, and a
    sweep at k = 10 in-slots on a ``build_topo_mirror(k=8)`` mirror with
    patched rows past 8 slots); ``lane_finish`` on that burst's bits, and at
-   W = 64 (the column-chunked form); ``block_refresh`` at the live shape
+   W = 64 (the column-chunked form), each with its launches a call;
+   ``block_refresh`` at the live shape
    (and a correctness case at base 37 with int32 rows of 3); ``packed_pull``
    with its fired summaries, as the main path runs it, at ``packed_10m``'s
    level 0, widest, median and last levels (W = 16, k = 8), the last mesh
@@ -204,7 +205,8 @@ user calls. Phases, each printing one JSON line:
    summaries and, when ``_smoke_tree/ref/packed_pull.cu`` (a reference
    source with the entry of the kernel before the fired summary, see
    :data:`REF_DIR`) is there, that kernel on the same inputs, timed in
-   turns; ``lane_finish`` at the mesh shape (the identity row map);
+   turns; ``lane_finish`` at the mesh shape (its identity form: no row
+   map, as the mesh burst calls it);
    ``wave_expand`` (pure) and
    ``wave_expand_merge`` at the union wave's first and widest levels;
    ``wave_expand_shards`` at the sharded wave's first level; the ring from
@@ -4070,11 +4072,15 @@ def lane_kernel_rows(device, level, churn, rng, row, check, restored, timed_pair
     e, unions = 0, {}
     for name, w0 in (("cleared", zero_w), ("1/8 invalid", some_w)):
         gk, gp = w0.clone(), w0.clone()
+        before = tpw.lane_finish_launches
         got = tpw.lane_finish(final, is_real, perm, gk)
+        per_call = tpw.lane_finish_launches - before
         want = tpw.lane_finish_plain(final, is_real, perm, gp)
         e = max(e, check(f"lane_finish ({name})", [got[0], got[1], got[2], gk],
                          [want[0], want[1], want[2], gp]))
         unions[name] = int(got[1])
+        if per_call != 1:
+            raise AssertionError(f"lane_finish: {per_call} launches for one call at W = {lw}")
     gk, gp = zero_w.clone(), zero_w.clone()
     call, restore = restored([(gk, zero_w)], lambda: tpw.lane_finish(final, is_real, perm, gk))
     plain_call, _ = restored([(gp, zero_w)],
@@ -4088,13 +4094,16 @@ def lane_kernel_rows(device, level, churn, rng, row, check, restored, timed_pair
         rows_n * 32 * lw, None, call=call,
         shape=(f"{rows_n} rows x int32[{lw}] ({real_n} real), {g_inv.shape[0]} dense words, "
                f"{unions['cleared']} union rows"),
-        ms_with_restore=with_ms, restore_ms=restore_ms, union_rows=unions)
+        ms_with_restore=with_ms, restore_ms=restore_ms, union_rows=unions,
+        launches_per_call=per_call)
 
     # lane_finish at W = 64 (2,048 lanes: the bits of that burst four times
     # over), the column-chunked form: 2 chunk launches and 1 commit a call
     final64 = final.repeat(1, 4)
     gk, gp = some_w.clone(), some_w.clone()
+    before = tpw.lane_finish_launches
     got = tpw.lane_finish(final64, is_real, perm, gk)
+    per_call = tpw.lane_finish_launches - before
     want = tpw.lane_finish_plain(final64, is_real, perm, gp)
     e = check("lane_finish (W=64)", [got[0], got[1], got[2], gk], [want[0], want[1], want[2], gp])
     unions64 = int(got[1])
@@ -4107,10 +4116,11 @@ def lane_kernel_rows(device, level, churn, rng, row, check, restored, timed_pair
         "stl_fusion_tpu/ops/topo_wave.py:768 (XLA topo_mirror_finish_lanes_step and "
         "_lane_counts_blocked :446; no Pallas kernel)", e, ms, plain_ms,
         rows_n * (4 * 64 + 1 + 4) + real_n * 4 + unions["cleared"] * 8 + g_inv.shape[0] * 4,
-        rows_n * 32 * 64, None, call=call, per_call=3, main_path=False,
+        rows_n * 32 * 64, None, call=call, per_call=per_call, main_path=False,
         shape=(f"{rows_n} rows x int32[64] ({real_n} real), {g_inv.shape[0]} dense words; "
                f"2 column chunks of 32 words + the commit"),
-        ms_with_restore=with_ms, restore_ms=restore_ms, union_rows_1_8_invalid=unions64)
+        ms_with_restore=with_ms, restore_ms=restore_ms, union_rows_1_8_invalid=unions64,
+        launches_per_call=per_call)
 
 
 
@@ -4344,7 +4354,7 @@ def packed_pull_rows(device, packed, live, row, check, restored, timed_pair) -> 
     exact against its plain version) and, when its source is in the
     checkout, the reference kernel on the same inputs, timed in turns
     (reference, this, this, reference); and ``lane_finish`` at the mesh shape (that burst's final
-    bits, the identity row map, its pre-burst blocked words)."""
+    bits, the identity form, its pre-burst blocked words)."""
     import torch
 
     from stl_fusion_tpu_torch.ops import packed_pull as ppp
@@ -4510,16 +4520,21 @@ def packed_pull_rows(device, packed, live, row, check, restored, timed_pair) -> 
               minv, -1, f"mesh_lanes_10m's last burst, {len(last['groups'])} groups")
     del seeds
 
-    # lane_finish at the mesh shape: that burst's final bits
+    # lane_finish at the mesh shape: that burst's final bits, the identity
+    # form (no row map), as the mesh burst calls it
     gk, gp = blocked.clone(), blocked.clone()
-    got = tpw.lane_finish(minv, mpg.is_real, mpg._rows, gk)
-    want = tpw.lane_finish_plain(minv, mpg.is_real, mpg._rows, gp)
+    before = tpw.lane_finish_launches
+    got = tpw.lane_finish(minv, mpg.is_real, None, gk)
+    per_call = tpw.lane_finish_launches - before
+    if per_call != 1:
+        raise AssertionError(f"lane_finish (mesh): {per_call} launches for one call")
+    want = tpw.lane_finish_plain(minv, mpg.is_real, None, gp)
     e = check("lane_finish (mesh)", [got[0], got[1], got[2], gk], [want[0], want[1], want[2], gp])
     union = int(got[1])
     call, restore = restored([(gk, blocked)],
-                             lambda: tpw.lane_finish(minv, mpg.is_real, mpg._rows, gk))
+                             lambda: tpw.lane_finish(minv, mpg.is_real, None, gk))
     plain_call, _ = restored([(gp, blocked)],
-                             lambda: tpw.lane_finish_plain(minv, mpg.is_real, mpg._rows, gp))
+                             lambda: tpw.lane_finish_plain(minv, mpg.is_real, None, gp))
     ms, plain_ms, with_ms, restore_ms = timed_pair(call, restore, plain_call, plain_reps=3)
     rows_n, real_n = mpg.n_global, int(mpg.is_real.sum())
     row("lane_finish (mesh)", "lane_finish", "stl_fusion_tpu_torch/csrc/lane_finish.cu",
@@ -4529,12 +4544,13 @@ def packed_pull_rows(device, packed, live, row, check, restored, timed_pair) -> 
         # blocked words read and written, the newly words, the lane counts
         rows_n * (4 * words + 1) + 3 * blocked.shape[0] * 4 + 4 * 32 * words,
         rows_n * 32 * words, None, call=call,
-        shape=(f"{rows_n} rows x int32[{words}] ({real_n} real), identity row map, "
+        shape=(f"{rows_n} rows x int32[{words}] ({real_n} real), identity form, "
                f"{blocked.shape[0]} blocked words, {union} union rows"),
         ms_with_restore=with_ms, restore_ms=restore_ms, union_rows=union,
-        # what the kernel's design moves beyond that: the row map read, the
-        # blocked words gathered per real row, two atomics per union row
-        design_extra_bytes=rows_n * 4 + real_n * 4 + union * 8)
+        launches_per_call=per_call,
+        # what the kernel's design moves beyond that: nothing (the identity
+        # form reads each blocked word once and stores each word once)
+        design_extra_bytes=0)
 
     # the pull leg (W = 1, the null row n_tot): its first level
     pleg = packed["pull_leg"]

@@ -57,9 +57,10 @@ KERNELS: Dict[str, tuple] = {
         "topo_sweep_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _I,
                               _P, _P],
     }),
-    # the last pointer before the stream is a host int (launches made)
+    # the row map may be null (the identity); the last pointer before the
+    # stream is a host int (launches made)
     "lane_finish": ("lane_finish.cu", {
-        "lane_finish_launch": [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _LL, _P, _P],
+        "lane_finish_launch": [_P, _P, _P, _P, _P, _P, _LL, _I, _LL, _P, _P],
     }),
     "block_refresh": ("block_refresh.cu", {
         "block_refresh_launch": [_P, _P, _P, _P, _LL, _LL, _LL, _I, _P],

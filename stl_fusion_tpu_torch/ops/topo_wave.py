@@ -548,9 +548,12 @@ def lane_finish_plain(final_bits, is_real, perm_clipped, g_invalid):
     """Plain PyTorch version of :func:`lane_finish` (JAX
     ``topo_mirror_finish_lanes_step``): the newly bits (real rows whose node
     was valid before the burst), their per-lane counts, the union rows, and
-    the union's commit into the dense words in place. Returns (lane_counts
+    the union's commit into the dense words in place. ``perm_clipped`` None
+    is the identity map (``arange(rows)``). Returns (lane_counts
     int32[32*W], union_count int32 0-d, newly mask words)."""
     fb = _as_rows(final_bits)
+    if perm_clipped is None:
+        perm_clipped = torch.arange(fb.shape[0], dtype=torch.int32, device=fb.device)
     ok = is_real & ~_bit_at(g_invalid, perm_clipped)
     newly_bits = torch.where(ok[:, None], fb, 0)
     lane_counts = _lane_counts_blocked(newly_bits, fb.shape[1])
@@ -563,43 +566,59 @@ def lane_finish_plain(final_bits, is_real, perm_clipped, g_invalid):
     return lane_counts, union.sum(dtype=torch.int32), newly
 
 
+_lane_finish_entry = None  # the C entry, resolved at the first launch
+
+
 def lane_finish(final_bits, is_real, perm_clipped, g_invalid):
     """The lane burst's epilogue. For each real row whose node's bit in the
     dense packed words ``g_invalid`` is clear, its final bits are newly:
     per-lane counts (int32[32*W], JAX's stack order), the union (rows with
     any newly bit: their count, and their bits OR'ed into ``g_invalid`` IN
-    PLACE and into a fresh packed newly mask like it). Returns
-    (lane_counts, union_count int32 0-d, newly mask words). A CPU tensor
-    takes :func:`lane_finish_plain`; a CUDA tensor launches
+    PLACE and into a fresh packed newly mask like it). ``perm_clipped``
+    maps rows to nodes; None is the identity map (row r is node r, the
+    packed mesh burst's rows), which the kernel takes without reading a
+    map. Returns (lane_counts, union_count int32 0-d, newly mask words). A
+    CPU tensor takes :func:`lane_finish_plain`; a CUDA tensor launches
     ``csrc/lane_finish.cu`` or raises."""
-    global lane_finish_launches
+    global lane_finish_launches, _lane_finish_entry
     fb = _as_rows(final_bits)
     n, w = fb.shape
     device = g_invalid.device
     for name, t, dtype in (("final_bits", fb, torch.int32), ("is_real", is_real, torch.bool),
                            ("perm_clipped", perm_clipped, torch.int32),
                            ("g_invalid", g_invalid, torch.int32)):
-        if t.dtype != dtype or not t.is_contiguous() or t.device != device:
+        if t is not None and (t.dtype != dtype or not t.is_contiguous() or t.device != device):
             raise ValueError(f"lane_finish: {name} must be a contiguous {dtype} tensor on {device}")
-    if is_real.shape != (n,) or perm_clipped.shape != (n,) or g_invalid.dim() != 1:
+    if (is_real.shape != (n,) or (perm_clipped is not None and perm_clipped.shape != (n,))
+            or g_invalid.dim() != 1):
         raise ValueError("lane_finish: is_real and perm_clipped need one entry per row of "
                          "final_bits, and g_invalid is 1-D")
+    if perm_clipped is None and 32 * g_invalid.shape[0] < n:
+        raise ValueError(f"lane_finish: the identity map needs {-(-n // 32)} dense words, "
+                         f"g_invalid has {g_invalid.shape[0]}")
     if device.type == "cpu":
         return lane_finish_plain(fb, is_real, perm_clipped, g_invalid)
     if device.type != "cuda":
         raise ValueError(f"lane_finish: unsupported device {device}")
     if w < 1:
         raise ValueError("lane_finish: the kernel takes rows of at least one word")
-    lane_counts = torch.zeros(32 * w, dtype=torch.int32, device=device)
-    union_count = torch.zeros(1, dtype=torch.int32, device=device)
-    newly = torch.zeros_like(g_invalid)
-    made = ctypes.c_int(0)
-    _build.launch("lane_finish", "lane_finish_launch", fb.data_ptr(), is_real.data_ptr(),
-                  perm_clipped.data_ptr(), g_invalid.data_ptr(), newly.data_ptr(),
-                  lane_counts.data_ptr(), union_count.data_ptr(), n, w, g_invalid.shape[0],
-                  ctypes.addressof(made))
+    # the lane counts and the union count in one buffer, and the mask: the
+    # entry zeroes what it accumulates into (the identity form writes every
+    # mask word)
+    counts = torch.empty(32 * w + 1, dtype=torch.int32, device=device)
+    newly = torch.empty_like(g_invalid)
+    if _lane_finish_entry is None:
+        _lane_finish_entry = _build.entry("lane_finish", "lane_finish_launch")
+    made = ctypes.c_int(0)  # the kernel launches the entry made
+    perm_ptr = None if perm_clipped is None else perm_clipped.data_ptr()
+    err = _lane_finish_entry(
+        fb.data_ptr(), is_real.data_ptr(), perm_ptr, g_invalid.data_ptr(), newly.data_ptr(),
+        counts.data_ptr(), n, w, g_invalid.shape[0], ctypes.addressof(made),
+        torch._C._cuda_getCurrentRawStream(device.index))
+    if err != 0:
+        raise RuntimeError(f"lane_finish: lane_finish_launch failed with CUDA error {err}")
     lane_finish_launches += made.value
-    return lane_counts, union_count[0], newly
+    return counts[: 32 * w], counts[32 * w], newly
 
 
 def topo_mirror_finish_lanes_step(n_tot: int, words: int):

@@ -92,17 +92,18 @@ def _gated_lane_burst(pg: "PackedShardedGraph", seed_ids: torch.Tensor, blocked:
     the resident ``blocked`` words: blocked rows get epoch -3, which no live
     edge's epoch matches, so they neither receive, count nor conduct, but
     seeds conduct even when blocked (the union rule). The epilogue is
-    ``lane_finish``: newly = the real rows' final bits where not blocked;
-    per-lane counts, the union rows, and the union OR'ed into ``blocked`` IN
-    PLACE. Returns (blocked, lane_counts int32[32*words], union_count 0-d
-    int32, newly words)."""
+    ``lane_finish`` in its identity form (row r is node r: no row map, each
+    tile of 32 rows one blocked word): newly = the real rows' final bits
+    where not blocked; per-lane counts, the union rows, and the union OR'ed
+    into ``blocked`` IN PLACE. Returns (blocked, lane_counts
+    int32[32*words], union_count 0-d int32, newly words)."""
     seeds, node_epoch = _gated_inputs(pg, seed_ids, blocked, words)
     inv = torch.zeros_like(seeds)
     counts = torch.zeros(words, dtype=torch.int32, device=seeds.device)
     run_pull_wave(pg.in_src, pg.edge_epoch, node_epoch, pg.is_real, seeds, inv, counts,
                   stats=stats)
     del seeds
-    lane_counts, union_count, newly = lane_finish(inv, pg.is_real, pg._rows, blocked)
+    lane_counts, union_count, newly = lane_finish(inv, pg.is_real, None, blocked)
     return blocked, lane_counts, union_count, newly
 
 
@@ -168,7 +169,7 @@ class PackedShardedGraph:
         self.h_edge_epoch = edge_epoch.copy()
         self.h_node_epoch = node_epoch.copy()
         self.invalid = torch.zeros((self.n_global, words), dtype=torch.int32, device=device)
-        #: the lane burst's identity row map (row r is node r)
+        #: the identity row map (row r is node r): the gate's blocked test
         self._rows = torch.arange(self.n_global, dtype=torch.int32, device=device)
         self._wave = build_packed_sharded_wave(self.mesh)
         #: levels, host syncs and early exits of the last run_waves /

@@ -515,6 +515,115 @@ def test_lane_finish_kernel_any_width_matches_plain(card, words):
     assert int(got[0][32 * (words - 1) + 31]) > 0  # the last word's sign-bit lane
 
 
+def _lane_finish_edge_inputs(card, words, case, n_rows=4109):
+    """Swept lane bits for the kernel's edges: ``n_rows`` not a multiple of
+    its 32-row tile, a row map in runs (rows r .. r + 31 map to nodes
+    shifted by 7, so each tile straddles two dense words; every fifth run
+    reversed), lane 31 of the last word set on some rows. ``case``:
+    "mixed" (virtual and pre-invalid rows, empty rows), "all" (every row
+    real, valid before and in the union), "none" (bits everywhere, every
+    real row pre-invalid: no union)."""
+    rng = np.random.default_rng(31 * words + len(case))
+    n_nodes = n_rows + 64
+    perm = (np.arange(n_rows) + 7).astype(np.int32)
+    for a in range(0, n_rows, 160):
+        perm[a : a + 32] = perm[a : a + 32][::-1].copy()
+    bits = rng.integers(-(2**31), 2**31, size=(n_rows, words), dtype=np.int32)
+    bits[rng.random(n_rows) < 0.1, words - 1] |= np.int32(-(2**31))
+    is_real = np.ones(n_rows, bool)
+    pre = np.zeros(32 * -(-n_nodes // 32), bool)
+    if case == "mixed":
+        is_real[rng.random(n_rows) < 0.1] = False
+        bits[rng.random(n_rows) < 0.3] = 0
+        pre[perm[rng.random(n_rows) < 0.25]] = True
+    elif case == "all":
+        bits[:, 0] |= 1
+    else:
+        pre[perm] = True
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(card)  # noqa: E731
+    return t(bits), t(is_real), t(perm), pack_bits(t(pre))
+
+
+def _lane_finish_exact(bits, is_real, perm, g_inv, launches=None):
+    """The kernel against ``lane_finish_plain`` from the same words; returns
+    the kernel's (lane counts, union count)."""
+    from stl_fusion_tpu_torch.ops import topo_wave as tpw
+
+    g_plain = g_inv.clone()
+    want = tpw.lane_finish_plain(bits, is_real, perm, g_plain)
+    before = tpw.lane_finish_launches
+    got = tpw.lane_finish(bits, is_real, perm, g_inv)
+    torch.cuda.synchronize()
+    if launches is not None:
+        assert tpw.lane_finish_launches == before + launches
+    assert torch.equal(got[0], want[0]) and int(got[1]) == int(want[1])
+    assert torch.equal(got[2], want[2]) and torch.equal(g_inv, g_plain)
+    return got[0], int(got[1])
+
+
+@pytest.mark.parametrize("words", [1, 2, 4, 8, 16, 32, 3, 48, 64])
+@pytest.mark.parametrize("case", ["mixed", "all", "none"])
+def test_lane_finish_kernel_edges(card, words, case):
+    """The tiled kernel's edges, exact against the plain version: a ragged
+    last tile, tiles straddling dense words, all rows in the union or none,
+    pre-invalid and virtual rows, lane 31 of the last word; one launch at a
+    power-of-two W <= 32, one per column chunk + 1 otherwise."""
+    bits, is_real, perm, g_inv = _lane_finish_edge_inputs(card, words, case)
+    chunks = {3: 2, 48: 2, 64: 2}.get(words)
+    counts, union = _lane_finish_exact(bits, is_real, perm, g_inv,
+                                       1 if chunks is None else chunks + 1)
+    if case == "none":
+        assert union == 0 and int(counts.sum()) == 0
+    else:
+        assert union == (bits.shape[0] if case == "all" else union) > 0
+        assert int(counts[32 * words - 1]) > 0
+
+
+@pytest.mark.parametrize("words", [1, 2, 16, 32, 48])
+def test_lane_finish_identity_form_matches_row_map(card, words):
+    """The identity form (no row map) equals the row-map form with
+    ``arange(rows)`` and the plain version: a ragged last tile, more dense
+    words than the rows need (the spare mask words are written 0)."""
+    from stl_fusion_tpu_torch.ops import topo_wave as tpw
+
+    bits, is_real, _, _ = _lane_finish_edge_inputs(card, words, "mixed")
+    rng = np.random.default_rng(words)
+    pre = pack_bits(torch.from_numpy(rng.random(32 * 140) < 0.2).to(card))  # 4,480 > 4,109 rows
+    rows = torch.arange(bits.shape[0], dtype=torch.int32, device=card)
+    g_ident, g_map = pre.clone(), pre.clone()
+    got = _lane_finish_exact(bits, is_real, None, g_ident)
+    want = tpw.lane_finish(bits, is_real, rows, g_map)
+    assert torch.equal(got[0], want[0]) and got[1] == int(want[1]) > 0
+    assert torch.equal(g_ident, g_map)
+
+
+@pytest.mark.parametrize("identity", [False, True])
+def test_lane_finish_replays_in_a_cuda_graph(card, identity):
+    """One call captured in ``torch.cuda.graph`` and replayed twice, each
+    time from restored dense words, equals the plain version: the entry's
+    memsets and the launch capture, and nothing reads the host."""
+    from stl_fusion_tpu_torch.ops import topo_wave as tpw
+
+    bits, is_real, perm, g0 = _lane_finish_edge_inputs(card, 16, "mixed")
+    if identity:
+        perm = None
+    g_plain = g0.clone()
+    want = tpw.lane_finish_plain(bits, is_real, perm, g_plain)
+    g_inv = g0.clone()
+    tpw.lane_finish(bits, is_real, perm, g_inv)  # built, loaded and warm outside capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    g_inv.copy_(g0)
+    with torch.cuda.graph(graph):
+        got = tpw.lane_finish(bits, is_real, perm, g_inv)
+    for _ in range(2):
+        g_inv.copy_(g0)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and int(got[1]) == int(want[1]) > 0
+        assert torch.equal(got[2], want[2]) and torch.equal(g_inv, g_plain)
+
+
 def _fill_slots(g, rng, n_rows=3000):
     """Fill every free in-slot of ``n_rows`` random rows of levels >= 1 with
     sources from lower levels, 80% live (epoch 0) and 20% dead (epoch 5):

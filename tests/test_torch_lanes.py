@@ -208,6 +208,46 @@ def test_finish_lanes_plain_matches_jax():
     assert torch.equal(got[0], p_counts) and torch.equal(g_again, g_words)
 
 
+@pytest.mark.parametrize("words", [1, 2, 16])
+def test_finish_lanes_identity_form_matches_jax(words):
+    """The lane epilogue's identity form (no row map: row r is node r, the
+    packed mesh burst's rows) against JAX ``topo_mirror_finish_lanes_step``
+    with ``perm = arange(rows)``: 1,003 rows (not a multiple of 32) over 40
+    dense words (more than the rows need), padded rows not real, pre-invalid
+    rows, lane 31; and against the port's row-map form on the same data."""
+    rng = np.random.default_rng(17 + words)
+    n_rows, n_real, n_words = 1003, 990, 40
+    is_real = np.zeros(n_rows, bool)
+    is_real[:n_real] = True
+    bits = rng.integers(-(2**31), 2**31, size=(n_rows, words), dtype=np.int32)
+    bits[rng.random(n_rows) < 0.5] = 0
+    bits[rng.random(n_rows) < 0.05, 0] = np.int32(-(2**31))
+    pre = np.zeros(32 * n_words, bool)
+    pre[rng.choice(n_real, 120, replace=False)] = True
+    perm = np.arange(n_rows, dtype=np.int32)
+    g2, lane_counts, union_count, packed = jtw.topo_mirror_finish_lanes_step(n_rows - 1, words)(
+        jnp.asarray(is_real), jnp.asarray(perm), jnp.asarray(pre), jnp.asarray(bits))
+    t = torch.from_numpy
+    got = {}
+    for form, rows in (("identity", None), ("row map", t(perm))):
+        g_words = t(pack_mask_host(pre))
+        counts, union, newly = ptw.lane_finish(t(bits), t(is_real), rows, g_words)
+        got[form] = (counts, union, newly, g_words)
+    counts, union, newly, g_words = got["identity"]
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(lane_counts))
+    assert int(union) == int(union_count) > 0 and int(counts[31]) > 0
+    np.testing.assert_array_equal(unpack_words_host(newly.numpy(), 32 * n_words),
+                                  np.unpackbits(np.asarray(packed).view(np.uint8),
+                                                count=32 * n_words, bitorder="little")
+                                  .astype(bool))
+    np.testing.assert_array_equal(unpack_words_host(g_words.numpy(), 32 * n_words),
+                                  np.asarray(g2))
+    for a, b in zip(got["identity"], got["row map"]):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="dense words"):
+        ptw.lane_finish(t(bits), t(is_real), None, torch.zeros(31, dtype=torch.int32))
+
+
 def two_chain_pair():
     """Two chains and a cross edge that violates the frozen level order: the
     patched mirror needs 2 passes (``tests/test_async_wave.py``'s graph)."""

@@ -330,12 +330,19 @@ def test_lat_carried_across_forced_relevel_and_blocked_by_pending_deltas():
 
 
 def _wait_for(path_glob, tmp_path, timeout=20.0):
+    """The entries matching ``path_glob`` under their final names, waited
+    for: the JAX package's ``np.savez`` writes ``<path>.tmp.npz`` first and
+    renames it when done, so a ``*.npz`` glob also sees the half-written
+    file."""
     import time
 
+    def landed():
+        return [p for p in tmp_path.glob(path_glob) if not p.name.endswith(".tmp.npz")]
+
     deadline = time.time() + timeout
-    while not list(tmp_path.glob(path_glob)) and time.time() < deadline:
+    while not landed() and time.time() < deadline:
         time.sleep(0.05)
-    return list(tmp_path.glob(path_glob))
+    return landed()
 
 
 def test_mirror_disk_cache_is_not_ported(monkeypatch, tmp_path):
